@@ -1,0 +1,121 @@
+"""All-alpha closed-loop rollouts (kernel K2) and their plain form.
+
+Counterpart of ``quattro_tpu/ops/fused_rollout.py::fused_feedback_rollouts``:
+
+    u_t = u_ref_t + alpha * (k_t + K_t (x_t - x_ref_t));  x_{t+1} = f(x_t, u_t)
+
+for every alpha at once, returning ``(cand_x (A, H+1, n), cand_u (A, H, m))``.
+The TPU kernel traces the user's dynamics into its body. A CUDA kernel cannot,
+so ``csrc/fused_rollout_single.cu`` carries the plants it knows as device
+functions, and the wrapper reads the plant descriptor of the discrete map
+(``systems.integrators.DiscreteDynamics``). On CUDA tensors a plant the kernel
+does not know raises ``ValueError``; CPU tensors take the plain form with the
+dynamics callable itself. Costs stay outside, as on the TPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Tuple
+
+import torch
+from torch.func import vmap
+
+from quattro_tpu_torch.ops import _build
+
+KERNEL = "fused_rollout_single"
+SUPPORTED_PLANTS = ("quadrotor",)
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def fused_feedback_rollouts_plain(
+    dynamics: Dynamics,
+    x0: torch.Tensor,
+    x_ref_seq: torch.Tensor,
+    u_ref_seq: torch.Tensor,
+    k_seq: torch.Tensor,
+    big_k_seq: torch.Tensor,
+    alphas: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of K2: all alphas stepped together over the horizon."""
+    horizon, m = u_ref_seq.shape
+    n_alpha = alphas.shape[0]
+    step = vmap(dynamics)
+    alpha_col = alphas[:, None].to(x0.dtype)
+    x = x0.expand(n_alpha, -1)
+    xs, us = [x], []
+    for t in range(horizon):
+        du = k_seq[t] + (x - x_ref_seq[t]) @ big_k_seq[t].T
+        u = u_ref_seq[t] + alpha_col * du
+        x = step(x, u)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+
+
+def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
+    plant = getattr(dynamics, "plant", None)
+    if plant not in SUPPORTED_PLANTS:
+        raise ValueError(
+            f"{KERNEL} has device code for the plants {SUPPORTED_PLANTS}; got "
+            f"{plant!r}. Build the dynamics as make_discrete(QuadrotorField(params), dt, "
+            "method), or use linesearch='xla'."
+        )
+    horizon, m = u_ref_seq.shape
+    n = x0.shape[0]
+    n_alpha = alphas.shape[0]
+    dtype = x0.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
+    if (n, m) != (12, 4):
+        raise ValueError(f"{KERNEL}: the quadrotor has n=12, m=4; got n={n}, m={m}")
+    inputs = [x0, x_ref_seq[:horizon], u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)]
+    shapes = [(n,), (horizon, n), (horizon, m), (horizon, m), (horizon, m, n), (n_alpha,)]
+    for t, shape in zip(inputs, shapes):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x0.device:
+            raise ValueError(
+                f"{KERNEL}: expected {shape} {dtype} on {x0.device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    inputs = [t.contiguous() for t in inputs]
+    cand_x = x0.new_empty((n_alpha, horizon + 1, n))
+    cand_u = x0.new_empty((n_alpha, horizon, m))
+    params = (ctypes.c_double * 7)(*[float(v) for v in dynamics.params])
+
+    lib = _build.library(KERNEL)
+    fn = lib.qt_fused_rollout_quadrotor
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
+                   + [ctypes.c_void_p] * 9)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            _DTYPES[dtype], horizon, n_alpha, int(dynamics.method == "rk4"), params,
+            float(dynamics.dt), *[t.data_ptr() for t in inputs],
+            cand_x.data_ptr(), cand_u.data_ptr(), stream,
+        )
+    _build.check(status, KERNEL)
+    _build.launches[KERNEL] += 1
+    return cand_x, cand_u
+
+
+def fused_feedback_rollouts(
+    dynamics: Dynamics,
+    x0: torch.Tensor,  # (n,)
+    x_ref_seq: torch.Tensor,  # (H+1, n) (only the first H rows are read)
+    u_ref_seq: torch.Tensor,  # (H, m)
+    k_seq: torch.Tensor,  # (H, m)
+    big_k_seq: torch.Tensor,  # (H, m, n)
+    alphas: torch.Tensor,  # (A,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-alpha rollouts: ``(cand_x (A, H+1, n), cand_u (A, H, m))``.
+
+    CUDA tensors launch K2 once; CPU tensors take the plain form.
+    """
+    if x0.is_cuda:
+        return _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    if x0.device.type == "cpu":
+        return fused_feedback_rollouts_plain(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    raise ValueError(f"{KERNEL}: unsupported device {x0.device}")

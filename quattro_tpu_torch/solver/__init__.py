@@ -1,0 +1,65 @@
+"""iLQR solver stack (counterpart of ``quattro_tpu.solver``)."""
+
+from quattro_tpu_torch.solver.costs import (
+    make_quadratic_cost,
+    make_quadratic_final_cost,
+    softplus_barrier,
+)
+from quattro_tpu_torch.solver.derivatives import (
+    CostExpansion,
+    FinalCostExpansion,
+    linearize_dynamics,
+    quadratize_cost,
+    quadratize_final_cost,
+)
+from quattro_tpu_torch.solver.ilqr import (
+    ILQRConfig,
+    ILQRSolution,
+    hybrid_ilqr_solve,
+    ilqr_solve,
+    ilqr_solve_fused,
+    pack_gain_tokens,
+    unpack_gain_tokens,
+)
+from quattro_tpu_torch.solver.riccati import (
+    RiccatiResult,
+    riccati_backward,
+    riccati_backward_auto,
+    riccati_backward_fused,
+)
+from quattro_tpu_torch.solver.rollout import (
+    DEFAULT_ALPHAS,
+    feedback_rollout,
+    line_search,
+    line_search_fused,
+    simulate,
+    trajectory_cost,
+)
+
+__all__ = [
+    "make_quadratic_cost",
+    "make_quadratic_final_cost",
+    "softplus_barrier",
+    "CostExpansion",
+    "FinalCostExpansion",
+    "linearize_dynamics",
+    "quadratize_cost",
+    "quadratize_final_cost",
+    "ILQRConfig",
+    "ILQRSolution",
+    "hybrid_ilqr_solve",
+    "ilqr_solve",
+    "ilqr_solve_fused",
+    "pack_gain_tokens",
+    "unpack_gain_tokens",
+    "RiccatiResult",
+    "riccati_backward",
+    "riccati_backward_auto",
+    "riccati_backward_fused",
+    "DEFAULT_ALPHAS",
+    "feedback_rollout",
+    "line_search",
+    "line_search_fused",
+    "simulate",
+    "trajectory_cost",
+]
