@@ -5,24 +5,39 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. Build both CUDA kernels from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
+1. Build the three CUDA kernels from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
 2. K1 (fused Riccati) against its plain PyTorch form on the card, on the
    bench problem's stages (H=100, n=12, m=4), float64 and float32.
 3. K2 (fused all-alpha rollouts) against its plain form, quadrotor RK4,
-   H=100, A=6, float64 and float32.
+   H=100, A=6, and cart-pole RK4, H=30, float64 and float32; and as the
+   megakernel path uses it, the initial rollout of a warm start (one
+   candidate, zero gains; quadrotor H=50, cart-pole H=30) against ``simulate``.
 4. The bench problem (quadrotor RK4 hover, H=100, 6 forced iterations)
    through K1 + K2, held to the same solve with riccati="seq",
    linesearch="xla"; iterations/s of both.
 5. Quadrotor MPC at H=50 (``make_quadrotor_mpc``, whose solves run K1 and
-   K2 on the card), pure iLQR and hybrid with the shipped gain
-   predictor (checkpoints/quadrotor_gain.npz), closed loop from z=0.2,
-   roll=0.15 against the port's RK4 plant; ||x - x_ref|| < 0.05 at the end.
+   K2 on the card), closed loop from z=0.2, roll=0.15 against the port's RK4
+   plant: pure iLQR, 300 steps, ||x - x_ref|| < 0.05 at the end; then hybrid
+   with the shipped gain predictor (checkpoints/quadrotor_gain.npz), 100
+   steps, held to the pure loop's state at the same step.
    Before the closed loops, the wall time of each part of one solve
    iteration at H=50 (simulate, derivatives, both Riccati forms, both line
    searches, the predictor) is printed as one ``breakdown_ms`` line; after
-   each, the device idle share of its first 3 steps under torch.profiler.
+   each, the device idle share of the next 3 steps under torch.profiler.
 
-Launch counters are zeroed just before each main-path run (phases 4 and 5)
+6. K3 (the whole solve in one launch) against its plain form: quadrotor at
+   H=50 (the MPC shape) and H=100 (the bench problem), cart-pole at H=30;
+   float64 and float32; forced trips (tol=0) and a run that converges before
+   its last trip; ``iters`` and ``converged`` equal, x, u, k, K and cost
+   within the bounds below.
+7. The megakernel MPC path at full width: ``make_quadrotor_mpc(horizon=50,
+   solver="megakernel", max_iter=6)``, 300 closed-loop steps, the same error
+   bar, exactly one K3 launch per step, step latency and device idle share;
+   the same step with ``simulate`` as the initial rollout, for its latency.
+   Then ``make_cartpole_mpc`` from [0.15, 0, 0.2, 0] with
+   ``solver="megakernel"`` and in mode ``"blend"`` (K1, K2 and the LQR gain).
+
+Launch counters are zeroed just before each main-path run (phases 4, 5 and 7)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -30,11 +45,13 @@ last line is {"ok": true, "device": {...}}. Needs no network and one card.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,9 +68,37 @@ F32_KERNEL_REL = 1e-4
 # about 2.45 N per rotor).
 F32_SOLVE_COST_REL = 1e-4
 F32_SOLVE_U_ABS = 1e-2
+# K3 against its plain form. float64: the same law in another summation
+# order. float32: trajectories and gains after up to 10 trips at H=100, held
+# to the bound of the other kernels (PERF.md gives the measured values); the
+# feedforward gain k vanishes at the optimum, so it is held on the controls'
+# scale (max |u|), not its own.
+F64_K3_REL = 1e-9
+F32_K3_REL = 1e-4
+F32_K3_COST_REL = 1e-4
 MPC_ERROR_BAR = 0.05
 MPC_STEPS = 300  # closed-loop steps per mode, the span of the error bar
-IDLE_STEPS = 3  # MPC steps traced for the device idle share
+# The hybrid controller (the slowest step of all, about a second) runs
+# 100 steps and is held to the pure controller's closed loop at the same
+# step, whose 300 steps are held to the error bar. With the exact fallback
+# both solve each step to the same optimum: in a CPU run of the port
+# (float32) the two loops differ by at most 1.1e-4 on the way and by 2.7e-5
+# after 100 steps, where ||x - x_ref|| is still 0.226. The bar is 1e-3.
+HYBRID_STEPS = 100
+HYBRID_TRACK_BAR = 1e-3
+SIMULATE_STEPS = 10  # megakernel steps timed with simulate as the initial rollout
+# Cart-pole, 300 steps from [0.15, 0, 0.2, 0] against the port's RK4 plant. A
+# CPU run of the port ends at ||x|| = 0.0996 with solver="megakernel"
+# (max_iter=6) and at 0.0198 in mode "blend", in float32 and in float64 alike;
+# the bars are 1.5 times that.
+CARTPOLE_MEGAKERNEL_BAR = 0.15
+CARTPOLE_BLEND_BAR = 0.03
+ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.05, 0.01)
+# MPC steps traced for the device idle share. They go on from the end of the
+# closed loop: warm-started steps, as all but the first few of a loop are. (A
+# cold first step of the while solver takes many iterations of tens of
+# thousands of launches each, and tracing it cost up to a minute.)
+IDLE_STEPS = 3
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 without tensor
 # cores, float64 without tensor cores, HBM3 bandwidth.
@@ -62,6 +107,7 @@ PEAK_BYTES = 3.35e12
 
 K1 = "fused_riccati_single"
 K2 = "fused_rollout_single"
+K3 = "fused_solve"
 Q = [10.0, 10.0, 50.0, 1.0, 1.0, 1.0, 10.0, 10.0, 50.0, 1.0, 1.0, 1.0]
 QF = [100.0, 100.0, 500.0, 10.0, 10.0, 10.0, 100.0, 100.0, 500.0, 10.0, 10.0, 10.0]
 
@@ -77,9 +123,10 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def time_ms(fn, reps):
-    """Per-call device time with CUDA events after one warm-up call."""
-    fn()
+def time_ms(fn, reps, warm=True):
+    """Per-call device time with CUDA events, after one warm-up call unless the caller has made it."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -107,6 +154,20 @@ def bench_problem(dtype, horizon=100):
     return dyn, cost, fcost, x0, u0
 
 
+def cartpole_problem(dtype, horizon=30):
+    """The cart-pole MPC's problem (make_cartpole_mpc's tables) from [0.15, 0, 0.2, 0] and zero controls."""
+    from quattro_tpu_torch.solver import make_quadratic_cost, make_quadratic_final_cost
+    from quattro_tpu_torch.systems import CartPoleField, make_discrete
+
+    t = lambda v: torch.tensor(v, dtype=dtype, device="cuda")
+    x_ref = t([0.0] * 4)
+    dyn = make_discrete(CartPoleField(), 0.01, "rk4")
+    cost = make_quadratic_cost(t([5.0, 0.1, 10.0, 0.1]), t([0.001]), x_ref)
+    fcost = make_quadratic_final_cost(t([50.0, 6.0, 100.0, 0.1]), x_ref)
+    return dyn, cost, fcost, t([0.15, 0.0, 0.2, 0.0]), torch.zeros(horizon, 1, dtype=dtype, device="cuda")
+
+
+@functools.lru_cache(maxsize=None)
 def bench_stages(dtype):
     """Stage data of the bench problem's first backward pass, and gains from it."""
     from quattro_tpu_torch.solver import (
@@ -184,6 +245,10 @@ def phase_k1(report):
 
 def phase_k2(report):
     from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts, fused_feedback_rollouts_plain
+    from quattro_tpu_torch.solver import (
+        linearize_dynamics, quadratize_cost, quadratize_final_cost, riccati_backward, simulate,
+    )
+    from quattro_tpu_torch.solver.ilqr import _initial_rollout
 
     for dtype in (torch.float64, torch.float32):
         dyn, _, x0, x_seq, u0, gains = bench_stages(dtype)
@@ -208,6 +273,107 @@ def phase_k2(report):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             )
             log(f"K2 float32 H=100 A=6: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.2e} ms ({b_by})")
+
+        # The cart-pole's device code: gains of its first backward pass at H=30.
+        dyn, cost, fcost, x0, u0 = cartpole_problem(dtype)
+        x_seq = simulate(dyn, x0, u0)
+        a, b = linearize_dynamics(dyn, x_seq, u0)
+        fin = quadratize_final_cost(fcost, x_seq[-1])
+        gains = riccati_backward(a, b, quadratize_cost(cost, x_seq, u0), fin.v_x, fin.v_xx, 1e-6)
+        args = (dyn, x0, x_seq, u0, gains.k_seq, gains.big_k_seq, torch.tensor(ALPHAS, dtype=dtype, device=x0.device))
+        out = fused_feedback_rollouts(*args)
+        ref = fused_feedback_rollouts_plain(*args)
+        torch.cuda.synchronize()
+        errs = {name: rel_err(o, r) for name, o, r in zip(("cand_x", "cand_u"), out, ref)}
+        log(f"K2 cart-pole {dtype}: rel err {errs} (bound {bound})")
+        if not all(np.isfinite(v) and v <= bound for v in errs.values()):
+            raise AssertionError(f"K2 disagrees with its plain form on the cart-pole in {dtype}: {errs}")
+
+        # The shape the megakernel path launches K2 at: the solve's initial
+        # rollout (one candidate, zero gains) of a warm start, against simulate.
+        gen = torch.Generator().manual_seed(0)
+        for label, problem, hover in (("quadrotor H=50", lambda dt: bench_problem(dt, 50), 2.4525),
+                                      ("cart-pole H=30", cartpole_problem, 0.0)):
+            dyn, _, _, x0, u0 = problem(dtype)
+            u_warm = u0 + hover + 0.1 * torch.randn(u0.shape, generator=gen, dtype=dtype).to(u0.device)
+            err = rel_err(_initial_rollout(dyn, x0, u_warm), simulate(dyn, x0, u_warm))
+            log(f"K2 as the initial rollout, {label} {dtype}: rel err {err:.3e} against simulate (bound {bound})")
+            if not (np.isfinite(err) and err <= bound):
+                raise AssertionError(f"K2's initial rollout disagrees with simulate ({label}, {dtype}): {err}")
+
+
+def k3_work(horizon, n, m, n_alpha, trips, field_flops, dtype):
+    """(bytes, flops) of one K3 solve: every one of the fixed trips does its full work."""
+    size = torch.finfo(dtype).bits // 8
+    inputs = (horizon + 1) * n + horizon * m + 1 + 2 * n * n + m * m + 2 * n + n_alpha
+    outputs = (horizon + 1) * n + 2 * horizon * m + horizon * m * n + 3
+    # What jacfwd of the RK4 step needs: the four field values and their
+    # combination once per time step, and per Jacobian column the tangent
+    # alone through every operation (twice a field's flops) and the combination.
+    linearize = horizon * ((4 * field_flops + 6 * n) + (n + m) * (4 * 2 * field_flops + 12 * n))
+    quadratize = horizon * (2 * n * n + 2 * m * m + 30 * m)
+    riccati = k1_work(horizon, n, m, dtype)[1]
+    step_cost = 2 * n * n + 2 * n + 2 * m * m + 2 * m + 12 * m
+    rollouts = n_alpha * horizon * (m * (2 * n + 2) + n + 4 * field_flops + 11 * n + step_cost)
+    return (inputs + outputs) * size, trips * (linearize + quadratize + riccati + rollouts)
+
+
+def phase_k3(report):
+    """K3 against its plain form at the shapes the entry points give it."""
+    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain
+    from quattro_tpu_torch.solver import simulate, trajectory_cost
+
+    # (label, problem, n, m, flops per field evaluation, converging (tol, trips), forced trips by dtype).
+    # Forced trips stop while the solve still descends in that precision:
+    # past that, accepts are ties that either summation order may win.
+    shapes = [
+        ("quadrotor H=50", lambda dt: bench_problem(dt, 50), 12, 4, 80, (0.2, 10), {torch.float64: 6, torch.float32: 6}),
+        ("quadrotor H=100", lambda dt: bench_problem(dt, 100), 12, 4, 80, (0.2, 10), {torch.float64: 6, torch.float32: 6}),
+        ("cart-pole H=30", cartpole_problem, 4, 1, 30, (1e-1, 6), {torch.float64: 3, torch.float32: 2}),
+    ]
+    for label, problem, n, m, field_flops, converging, forced in shapes:
+        for dtype in (torch.float64, torch.float32):
+            dyn, cost, fcost, x0, u0 = problem(dtype)
+            horizon = u0.shape[0]
+            x_init = simulate(dyn, x0, u0)
+            cost_init = trajectory_cost(cost, fcost, x_init, u0)
+            for kind, (tol, trips) in (("forced", (0.0, forced[dtype])), ("converging", converging)):
+                args = (dyn, cost, fcost, x_init, u0, cost_init, trips, tol, 1e-6, ALPHAS)
+                out = fused_ilqr_solve_kernel(*args)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                ref = fused_ilqr_solve_kernel_plain(*args)
+                torch.cuda.synchronize()
+                plain_ms = 1e3 * (time.perf_counter() - start)
+                x, u, k, big_k, stats = out
+                rx, ru, rk, rbig_k, rstats = ref
+                u_scale = max(float(ru.abs().max()), float(rk.abs().max()), 1e-30)
+                errs = dict(x=rel_err(x, rx), u=rel_err(u, ru), K=rel_err(big_k, rbig_k),
+                            k=float((k - rk).abs().max()) / u_scale)
+                cost_rel = abs(float(stats[0, 0]) - float(rstats[0, 0])) / abs(float(rstats[0, 0]))
+                bound, cost_bound = (F64_K3_REL, F64_K3_REL) if dtype == torch.float64 else (F32_K3_REL, F32_K3_COST_REL)
+                flags, rflags = stats[0, 1:].tolist(), rstats[0, 1:].tolist()
+                log(f"K3 {label} {dtype} {kind} (tol {tol}, {trips} trips): iters/converged {flags} plain {rflags}; "
+                    f"rel err {errs} (bound {bound}), cost rel {cost_rel:.3e} (bound {cost_bound}); plain {plain_ms:.1f} ms")
+                if flags != rflags:
+                    raise AssertionError(f"K3 {label} {dtype} {kind}: iters/converged {flags}, plain form {rflags}")
+                if kind == "forced" and flags != [float(trips), 0.0]:
+                    raise AssertionError(f"K3 {label} {dtype}: the forced run did not take its {trips} trips: {flags}")
+                if kind == "converging" and not (flags[1] == 1.0 and flags[0] < trips):
+                    raise AssertionError(f"K3 {label} {dtype}: the converging run did not converge early: {flags}")
+                if not all(np.isfinite(v) and v <= bound for v in errs.values()) or not cost_rel <= cost_bound:
+                    raise AssertionError(f"K3 disagrees with its plain form ({label}, {dtype}, {kind}): {errs}, cost {cost_rel}")
+                if kind == "forced":
+                    ms = time_ms(lambda: fused_ilqr_solve_kernel(*args), 50)
+                    b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype), dtype)
+                    log(f"K3 {label} {dtype}, {trips} trips: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
+                    if dtype == torch.float32 and label == "quadrotor H=50":  # the shape the MPC path launches it at
+                        report[K3] = dict(
+                            name=K3, route="cuda", source="quattro_tpu_torch/csrc/fused_solve.cu",
+                            replaces="quattro_tpu/ops/fused_solve.py:70", launches=0,
+                            max_abs_err=max(float((o - r).abs().max()) for o, r in zip(out, ref)),
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        )
 
 
 def counted(kernels, report, fn):
@@ -246,13 +412,13 @@ def phase_bench(report):
         raise AssertionError("fused bench solve disagrees with the seq/xla solve")
     rates = {}
     for label, cfg in (("fused", fused_cfg), ("seq_xla", seq_cfg)):
-        ms = time_ms(lambda: ilqr_solve(dyn, cost, fcost, x0, u0, cfg), 3)
+        ms = time_ms(lambda: ilqr_solve(dyn, cost, fcost, x0, u0, cfg), 1, warm=False)  # the solves above warmed both
         rates[label] = 6.0 / (ms / 1e3)
         log(f"bench {label}: {ms:.2f} ms per 6-iteration solve, {rates[label]:.1f} iterations/s")
     return rates
 
 
-def wall_ms(fn, reps=5):
+def wall_ms(fn, reps=2):
     """Median host wall time of one synchronized call, after one warm-up call."""
     fn()
     times = []
@@ -321,6 +487,117 @@ def idle_share(fn):
     return None if busy_us <= 0 else 1.0 - busy_us / wall_us
 
 
+class Loop(NamedTuple):
+    x: torch.Tensor  # the plant's last state
+    x_plan: torch.Tensor  # the controller's last plan
+    lat: list  # step latencies (s)
+    state: object  # the controller's state after the last step
+    xs: list  # the plant's state after each step
+
+
+def closed_loop(step, state, plant, x, n_steps):
+    """``n_steps`` of controller and plant in turn."""
+    lat, xs = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        u, x_plan, state = step(x, state)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        x = plant(x, u)
+        xs.append(x)
+    return Loop(x, x_plan, lat, state, xs)
+
+
+def quadrotor_start(dev):
+    x = torch.zeros(12, device=dev)
+    x[2], x[6] = 0.2, 0.15
+    return x
+
+
+def latency(lat):
+    lat_ms = 1e3 * np.asarray(lat)
+    return float(np.median(lat_ms)), float(np.percentile(lat_ms, 99))
+
+
+def phase_megakernel(report):
+    """The megakernel MPC path: quadrotor at full width, then the cart-pole (megakernel and blend)."""
+    from quattro_tpu_torch.control import MPCState, make_cartpole_mpc, make_quadrotor_mpc, shift_warm_start
+    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_kernel
+    from quattro_tpu_torch.solver import make_quadratic_cost, make_quadratic_final_cost, simulate, trajectory_cost
+    from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete
+
+    dev = torch.device("cuda")
+    results = {}
+    plant = make_discrete(QuadrotorField(), 0.01, "rk4")
+    x_ref = torch.zeros(12, device=dev)
+    x_ref[2] = 0.5
+    ctrl = make_quadrotor_mpc(horizon=50, solver="megakernel", max_iter=6)
+
+    def run(n_steps=MPC_STEPS):
+        return closed_loop(ctrl.step, ctrl.init_state(), plant, quadrotor_start(dev), n_steps)
+
+    (x, x_plan, lat, state, _), counts = counted((K2, K3), report, run)
+    idle = idle_share(lambda: closed_loop(ctrl.step, state, plant, x, IDLE_STEPS))
+    err = float((x - x_ref).norm())
+    median_ms, p99_ms = latency(lat)
+    log(f"MPC megakernel (quadrotor H=50, 6 trips): {MPC_STEPS} steps, ||x - x_ref|| = {err:.3e}, step latency "
+        f"median {median_ms:.3f} ms p99 {p99_ms:.3f} ms, launches {counts}, device idle share over the next "
+        f"{IDLE_STEPS} steps (profiled) {idle}")
+    if counts.get(K3) != MPC_STEPS or counts.get(K1, 0) != 0:
+        raise AssertionError(f"MPC megakernel: expected exactly one K3 launch per step and no K1, got {counts}")
+    if not (torch.isfinite(x_plan).all() and x_plan.shape == (51, 12)):
+        raise AssertionError("MPC megakernel: malformed plan")
+    if not err < MPC_ERROR_BAR:
+        raise AssertionError(f"MPC megakernel: ||x - x_ref|| = {err} >= {MPC_ERROR_BAR}")
+    results["quadrotor"] = dict(err=err, median_ms=median_ms, p99_ms=p99_ms, idle_share=idle)
+
+    # The same step with the eager simulate as the initial rollout (what the
+    # JAX entry point does), composed by hand from the port's public pieces.
+    t = lambda v: torch.tensor(v, device=dev)
+    cost = make_quadratic_cost(t(Q), t([0.01] * 4), x_ref, barrier_alpha=1000.0, barrier_beta=10.0)
+    fcost = make_quadratic_final_cost(t(QF), x_ref)
+
+    def step_with_simulate(x, state):
+        x_init = simulate(plant, x, state.u_warm)
+        cost_init = trajectory_cost(cost, fcost, x_init, state.u_warm)
+        x_seq, u_seq, _, _, stats = fused_ilqr_solve_kernel(
+            plant, cost, fcost, x_init, state.u_warm, cost_init, 6, 1e-3, 1e-6, ALPHAS)
+        stats[0].tolist()  # the solve's one host read
+        return u_seq[0], x_seq, MPCState(shift_warm_start(u_seq))
+
+    x_sim, _, lat_sim, _, _ = closed_loop(step_with_simulate, ctrl.init_state(), plant, quadrotor_start(dev), SIMULATE_STEPS)
+    x_k2 = run(SIMULATE_STEPS).x
+    drift = float((x_sim - x_k2).abs().max())
+    sim_median, sim_p99 = latency(lat_sim)
+    log(f"MPC megakernel with simulate as the initial rollout: {SIMULATE_STEPS} steps, step latency median "
+        f"{sim_median:.3f} ms p99 {sim_p99:.3f} ms; max |x - x(K2 initial rollout)| after them {drift:.3e}")
+    if not drift < 1e-5:
+        raise AssertionError(f"the two initial rollouts lead to different closed loops: {drift}")
+    results["quadrotor_simulate"] = dict(median_ms=sim_median, p99_ms=sim_p99)
+
+    cart_plant = make_discrete(CartPoleField(), 0.01, "rk4")
+    for label, kwargs, kernels, bar in (
+        ("megakernel", dict(solver="megakernel", max_iter=6), (K2, K3), CARTPOLE_MEGAKERNEL_BAR),
+        ("blend", dict(mode="blend"), (K1, K2), CARTPOLE_BLEND_BAR),
+    ):
+        cart = make_cartpole_mpc(**kwargs)
+        (x, x_plan, lat, _, _), counts = counted(
+            kernels, report,
+            lambda: closed_loop(cart.step, cart.init_state(), cart_plant, t([0.15, 0.0, 0.2, 0.0]), MPC_STEPS))
+        err = float(x.norm())
+        median_ms, p99_ms = latency(lat)
+        log(f"MPC cart-pole {label} (H=30): {MPC_STEPS} steps, ||x|| = {err:.3e} (bar {bar}), step latency median "
+            f"{median_ms:.3f} ms p99 {p99_ms:.3f} ms, launches {counts}")
+        if label == "megakernel" and counts.get(K3) != MPC_STEPS:
+            raise AssertionError(f"cart-pole megakernel: expected one K3 launch per step, got {counts}")
+        if not (torch.isfinite(x_plan).all() and x_plan.shape == (31, 4)):
+            raise AssertionError(f"MPC cart-pole {label}: malformed plan")
+        if not err < bar:
+            raise AssertionError(f"MPC cart-pole {label}: ||x|| = {err} >= {bar}")
+        results[f"cartpole_{label}"] = dict(err=err, median_ms=median_ms, p99_ms=p99_ms)
+    return results
+
+
 def phase_mpc(report, root):
     from quattro_tpu_torch.control import make_quadrotor_mpc
     from quattro_tpu_torch.models import GainPredictor
@@ -333,37 +610,32 @@ def phase_mpc(report, root):
     plant = make_discrete(QuadrotorField(), 0.01, "rk4")
     x_ref = torch.zeros(12, device=dev)
     x_ref[2] = 0.5
-    results = {}
-    for mode in ("ilqr", "hybrid"):
+    results, pure_xs = {}, None
+    for mode, n_steps in (("ilqr", MPC_STEPS), ("hybrid", HYBRID_STEPS)):
         kwargs = dict(predict_fn=pred.predict_fn(), prompt_len=pred.prompt_len) if mode == "hybrid" else {}
         ctrl = make_quadrotor_mpc(horizon=50, mode=mode, **kwargs)
-
-        def run(n_steps=MPC_STEPS):
-            x = torch.zeros(12, device=dev)
-            x[2], x[6] = 0.2, 0.15
-            state = ctrl.init_state()
-            lat = []
-            for _ in range(n_steps):
-                t0 = time.perf_counter()
-                u, x_plan, state = ctrl.step(x, state)
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t0)
-                x = plant(x, u)
-            return x, x_plan, lat
-
-        (x, x_plan, lat), counts = counted((K1, K2), report, run)
-        idle = idle_share(lambda: run(IDLE_STEPS))
+        (x, x_plan, lat, state, xs), counts = counted(
+            (K1, K2), report,
+            lambda: closed_loop(ctrl.step, ctrl.init_state(), plant, quadrotor_start(dev), n_steps))
+        idle = idle_share(lambda: closed_loop(ctrl.step, state, plant, x, IDLE_STEPS))
         err = float((x - x_ref).norm())
-        lat_ms = 1e3 * np.asarray(lat)
-        log(f"MPC {mode}: {MPC_STEPS} steps, ||x - x_ref|| = {err:.3e}, step latency median "
-            f"{np.median(lat_ms):.2f} ms p99 {np.percentile(lat_ms, 99):.2f} ms, launches {counts}, "
-            f"device idle share over the first {IDLE_STEPS} steps (profiled) {idle}")
+        median_ms, p99_ms = latency(lat)
+        log(f"MPC {mode}: {n_steps} steps, ||x - x_ref|| = {err:.3e}, step latency median "
+            f"{median_ms:.2f} ms p99 {p99_ms:.2f} ms (first step {1e3 * lat[0]:.0f} ms, all {sum(lat):.1f} s), launches {counts}, "
+            f"device idle share over the next {IDLE_STEPS} steps (profiled) {idle}")
         if not (torch.isfinite(x_plan).all() and x_plan.shape == (51, 12)):
             raise AssertionError(f"MPC {mode}: malformed plan")
-        if not err < MPC_ERROR_BAR:
-            raise AssertionError(f"MPC {mode}: ||x - x_ref|| = {err} >= {MPC_ERROR_BAR}")
-        results[mode] = dict(err=err, median_ms=float(np.median(lat_ms)), p99_ms=float(np.percentile(lat_ms, 99)),
-                             idle_share=idle)
+        results[mode] = dict(steps=n_steps, err=err, median_ms=median_ms, p99_ms=p99_ms, idle_share=idle)
+        if mode == "ilqr":
+            pure_xs = xs
+            if not err < MPC_ERROR_BAR:
+                raise AssertionError(f"MPC {mode}: ||x - x_ref|| = {err} >= {MPC_ERROR_BAR}")
+        else:
+            track = float((x - pure_xs[n_steps - 1]).abs().max())
+            log(f"MPC hybrid: max |x - x(pure)| after {n_steps} steps {track:.3e} (bar {HYBRID_TRACK_BAR})")
+            if not track < HYBRID_TRACK_BAR:
+                raise AssertionError(f"MPC hybrid left the pure closed loop: {track} >= {HYBRID_TRACK_BAR}")
+            results[mode]["track"] = track
     return results
 
 
@@ -389,17 +661,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
     start = time.perf_counter()
-    seconds = _build.build_all([K1, K2])
+    seconds = _build.build_all([K1, K2, K3])
     log(f"build: {seconds} s each, {time.perf_counter() - start:.1f} s wall")
 
     report = {}
     phase_k1(report)
     phase_k2(report)
+    phase_k3(report)
     rates = phase_bench(report)
     mpc = phase_mpc(report, root)
-    log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc}}))
+    mega = phase_megakernel(report)
+    log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc, "mpc_megakernel": mega}}))
     print(smi)
-    print(json.dumps({"kernels": [report[K1], report[K2]]}))
+    print(json.dumps({"kernels": [report[K1], report[K2], report[K3]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

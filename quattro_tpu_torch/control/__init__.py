@@ -1,5 +1,6 @@
 """MPC orchestration (counterpart of ``quattro_tpu.control``)."""
 
+from quattro_tpu_torch.control.switcher import blending_weight
 from quattro_tpu_torch.control.mpc import (
     MPCController,
     MPCState,
@@ -10,6 +11,7 @@ from quattro_tpu_torch.control.mpc import (
 )
 
 __all__ = [
+    "blending_weight",
     "MPCController",
     "MPCState",
     "build_mpc",

@@ -4,8 +4,13 @@ Each ``csrc/<name>.cu`` is compiled for ``sm_90a`` by
 ``torch.utils.cpp_extension.load`` into ``quattro_tpu_torch/_build/<name>/``
 the first time a kernel of it is launched (or when ``build_all`` is called).
 The sources have a plain C interface and include no PyTorch header, so each
-builds in seconds; the shared library is bound with ``ctypes``. Nothing here
-runs at import: the CPU test run collects without ``nvcc``.
+builds in seconds; the shared library is bound with ``ctypes``. Headers
+(``csrc/*.cuh``) are reached by ``#include`` relative to ``csrc/``. Nothing
+here runs at import: the CPU test run collects without ``nvcc``.
+
+``csrc/host_derivatives.cpp`` is the one host source: the same route builds
+it with the host C++ compiler, so a CPU test can call the plant and cost
+derivatives that the kernels share.
 
 ``launches`` counts kernel launches per kernel name. A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path went
@@ -26,6 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
+HOST_FLAGS = ["-O2", "-std=c++17", "-Wno-unknown-pragmas"]  # the headers carry "#pragma unroll" for nvcc
 
 launches: collections.Counter = collections.Counter()
 
@@ -42,10 +48,12 @@ def _compile(source: str) -> ctypes.CDLL:
 
     build_dir = BUILD_DIR / source
     build_dir.mkdir(parents=True, exist_ok=True)
+    kernel = CSRC / f"{source}.cu"
     path = load(
         name=f"qt_{source}",
-        sources=[str(CSRC / f"{source}.cu")],
+        sources=[str(kernel if kernel.exists() else CSRC / f"{source}.cpp")],
         build_directory=str(build_dir),
+        extra_cflags=HOST_FLAGS,
         extra_cuda_cflags=NVCC_FLAGS,
         is_python_module=False,
         verbose=False,
@@ -54,7 +62,7 @@ def _compile(source: str) -> ctypes.CDLL:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>.cu``, built on first use."""
+    """The loaded library of ``csrc/<source>.cu`` (or ``.cpp``), built on first use."""
     with _lock:
         lib = _libs.get(source)
     if lib is None:

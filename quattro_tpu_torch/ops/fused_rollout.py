@@ -6,8 +6,9 @@ Counterpart of ``quattro_tpu/ops/fused_rollout.py::fused_feedback_rollouts``:
 
 for every alpha at once, returning ``(cand_x (A, H+1, n), cand_u (A, H, m))``.
 The TPU kernel traces the user's dynamics into its body. A CUDA kernel cannot,
-so ``csrc/fused_rollout_single.cu`` carries the plants it knows as device
-functions, and the wrapper reads the plant descriptor of the discrete map
+so ``csrc/fused_rollout_single.cu`` carries the plants it knows (quadrotor
+and cart-pole, ``csrc/plants.cuh``) as device functions, and the wrapper
+reads the plant descriptor of the discrete map
 (``systems.integrators.DiscreteDynamics``). On CUDA tensors a plant the kernel
 does not know raises ``ValueError``; CPU tensors take the plain form with the
 dynamics callable itself. Costs stay outside, as on the TPU.
@@ -24,8 +25,10 @@ from torch.func import vmap
 from quattro_tpu_torch.ops import _build
 
 KERNEL = "fused_rollout_single"
-SUPPORTED_PLANTS = ("quadrotor",)
-_DTYPES = {torch.float32: 0, torch.float64: 1}
+# Plants with device code in csrc/plants.cuh: name -> (kernel's plant id, n, m).
+DEVICE_PLANTS = {"quadrotor": (0, 12, 4), "cartpole": (1, 4, 1)}
+SUPPORTED_PLANTS = tuple(DEVICE_PLANTS)
+DTYPES = {torch.float32: 0, torch.float64: 1}
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -55,22 +58,36 @@ def fused_feedback_rollouts_plain(
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
 
-def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
+def device_plant(dynamics, kernel: str, n: int, m: int):
+    """``(plant id, parameter array, is_rk4, dt)`` of a discrete map for a kernel's C entry point.
+
+    Raises ``ValueError`` for a callable that is not one of the plants with
+    device code, or whose dimensions are not the plant's.
+    """
     plant = getattr(dynamics, "plant", None)
-    if plant not in SUPPORTED_PLANTS:
+    if plant not in DEVICE_PLANTS:
         raise ValueError(
-            f"{KERNEL} has device code for the plants {SUPPORTED_PLANTS}; got "
+            f"{kernel} has device code for the plants {SUPPORTED_PLANTS}; got "
             f"{plant!r}. Build the dynamics as make_discrete(QuadrotorField(params), dt, "
-            "method), or use linesearch='xla'."
+            "method) or make_discrete(CartPoleField(params), dt, method), or use the "
+            "PyTorch forms (linesearch='xla', solver='while')."
         )
+    plant_id, plant_n, plant_m = DEVICE_PLANTS[plant]
+    if (n, m) != (plant_n, plant_m):
+        raise ValueError(f"{kernel}: the {plant} has n={plant_n}, m={plant_m}; got n={n}, m={m}")
+    values = [float(v) for v in dynamics.params]
+    params = (ctypes.c_double * len(values))(*values)
+    return plant_id, params, int(dynamics.method == "rk4"), float(dynamics.dt)
+
+
+def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
     horizon, m = u_ref_seq.shape
     n = x0.shape[0]
     n_alpha = alphas.shape[0]
+    plant_id, params, rk4, dt = device_plant(dynamics, KERNEL, n, m)
     dtype = x0.dtype
-    if dtype not in _DTYPES:
+    if dtype not in DTYPES:
         raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
-    if (n, m) != (12, 4):
-        raise ValueError(f"{KERNEL}: the quadrotor has n=12, m=4; got n={n}, m={m}")
     inputs = [x0, x_ref_seq[:horizon], u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)]
     shapes = [(n,), (horizon, n), (horizon, m), (horizon, m), (horizon, m, n), (n_alpha,)]
     for t, shape in zip(inputs, shapes):
@@ -82,18 +99,17 @@ def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
     inputs = [t.contiguous() for t in inputs]
     cand_x = x0.new_empty((n_alpha, horizon + 1, n))
     cand_u = x0.new_empty((n_alpha, horizon, m))
-    params = (ctypes.c_double * 7)(*[float(v) for v in dynamics.params])
 
     lib = _build.library(KERNEL)
-    fn = lib.qt_fused_rollout_quadrotor
+    fn = lib.qt_fused_rollout
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
                    + [ctypes.c_void_p] * 9)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(
-            _DTYPES[dtype], horizon, n_alpha, int(dynamics.method == "rk4"), params,
-            float(dynamics.dt), *[t.data_ptr() for t in inputs],
+            DTYPES[dtype], plant_id, horizon, n_alpha, rk4, params, dt,
+            *[t.data_ptr() for t in inputs],
             cand_x.data_ptr(), cand_u.data_ptr(), stream,
         )
     _build.check(status, KERNEL)

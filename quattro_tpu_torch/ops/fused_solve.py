@@ -1,0 +1,218 @@
+"""The whole iLQR solve in one launch (kernel K3) and its plain form.
+
+Counterpart of ``quattro_tpu/ops/fused_solve.py::fused_ilqr_solve_kernel``:
+``max_iter`` fixed trips of linearize + quadratize, backward Riccati (the
+fused step law of ``ops/fused_riccati.py``), all-alpha rollouts with the
+running cost summed step by step and the final cost added last, first-accept
+select and the convergence bookkeeping, under a ``done`` mask. Trips after
+convergence recompute on the frozen trajectory and are discarded, so a solve
+always does the same work; the gains returned are those of the last active
+trip.
+
+The TPU kernel traces the user's dynamics and costs into its body. A CUDA
+kernel cannot, so ``csrc/fused_solve.cu`` carries the in-repo plants
+(``csrc/plants.cuh``) and the quadratic + softplus^2-barrier cost family
+(``csrc/costs.cuh``) with their derivatives as device functions, and the
+wrapper reads the plant descriptor of the discrete map and the tables of the
+cost objects (``solver/costs.py``). On CUDA tensors a plant or a cost the
+kernel does not know raises ``ValueError``; CPU tensors take the plain form
+with the callables themselves. There is no route from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Sequence, Tuple
+
+import torch
+from torch.func import vmap
+
+from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_fused_single_plain
+from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant, fused_feedback_rollouts_plain
+from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
+
+KERNEL = "fused_solve"
+SUPPORTED_COSTS = ("quadratic", "quadratic_final")
+MAX_ALPHAS = 64
+
+Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+FinalCost = Callable[[torch.Tensor], torch.Tensor]
+SolveOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def fused_ilqr_solve_kernel_plain(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x_init_seq: torch.Tensor,
+    u_init: torch.Tensor,
+    cost_init: torch.Tensor,
+    max_iter: int,
+    tol: float,
+    reg: float,
+    alphas: Sequence[float],
+) -> SolveOutputs:
+    """Plain PyTorch form of K3: the same masked fixed-trip loop, no host reads."""
+    horizon, m = u_init.shape
+    n = x_init_seq.shape[-1]
+    dtype, device = x_init_seq.dtype, x_init_seq.device
+    alphas_t = torch.as_tensor(alphas, dtype=dtype, device=device)
+    step_cost, last_cost = vmap(cost), vmap(final_cost)
+
+    xs, us = x_init_seq, u_init
+    k_out = u_init.new_zeros((horizon, m))
+    big_k_out = u_init.new_zeros((horizon, m, n))
+    cur = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(())
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    iters = torch.zeros((), dtype=dtype, device=device)
+
+    for _ in range(max_iter):
+        active = ~done
+        a_seq, b_seq = linearize_dynamics(dynamics, xs, us)
+        cost_exp = quadratize_cost(cost, xs, us)
+        final_exp = quadratize_final_cost(final_cost, xs[-1])
+        k_seq, big_k_seq, _, _ = riccati_backward_fused_single_plain(
+            a_seq, b_seq, cost_exp, final_exp.v_x, final_exp.v_xx, reg
+        )
+        cand_x, cand_u = fused_feedback_rollouts_plain(dynamics, xs[0], xs, us, k_seq, big_k_seq, alphas_t)
+        # Running cost summed in time order per alpha, final cost last: the
+        # order decides near-tie accepts, so the kernel sums the same way.
+        run = torch.zeros_like(alphas_t)
+        for t in range(horizon):
+            run = run + step_cost(cand_x[:, t], cand_u[:, t])
+        total = run + last_cost(cand_x[:, -1])
+
+        accepted = total <= cur
+        found = accepted.any()
+        first = torch.argmax(accepted.to(torch.int8))  # first accepted (largest) alpha
+        update = active & found
+        xs = torch.where(update, cand_x[first], xs)
+        us = torch.where(update, cand_u[first], us)
+        k_out = torch.where(active, k_seq, k_out)
+        big_k_out = torch.where(active, big_k_seq, big_k_out)
+        cost_next = torch.where(update, total[first], cur)
+        small = (cur - cost_next).abs() < tol
+        done = torch.where(active, ~found | small, done)
+        iters = iters + active.to(dtype)
+        cur = cost_next
+
+    stats = torch.stack([cur, iters, done.to(dtype)]).reshape(1, 3)
+    return xs, us, k_out, big_k_out, stats
+
+
+def _cost_tables(cost, final_cost, n: int, m: int, like: torch.Tensor):
+    """The kernel's view of the costs: ``(q, r, x_ref, qf, xf_ref)`` tensors, alpha, beta."""
+    kinds = (getattr(cost, "kind", None), getattr(final_cost, "kind", None))
+    if kinds != SUPPORTED_COSTS:
+        raise ValueError(
+            f"{KERNEL} has device code for the costs of make_quadratic_cost and "
+            f"make_quadratic_final_cost (kinds {SUPPORTED_COSTS}); got kinds {kinds}. "
+            "Other callables need solver='while' (ilqr_solve)."
+        )
+    tables = [cost.q_mat, cost.r_mat, cost.x_ref, final_cost.qf_mat, final_cost.x_ref]
+    shapes = [(n, n), (m, m), (n,), (n, n), (n,)]
+    for t, shape in zip(tables, shapes):
+        if tuple(t.shape) != shape or t.dtype != like.dtype or t.device != like.device:
+            raise ValueError(
+                f"{KERNEL}: cost table expected {shape} {like.dtype} on {like.device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    return [t.contiguous() for t in tables], float(cost.barrier_alpha), float(cost.barrier_beta)
+
+
+def _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas) -> SolveOutputs:
+    horizon, m = u_init.shape
+    n = x_init_seq.shape[-1]
+    n_alpha = len(alphas)
+    dtype, device = x_init_seq.dtype, x_init_seq.device
+    plant_id, params, rk4, dt = device_plant(dynamics, KERNEL, n, m)
+    if dtype not in DTYPES:
+        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
+    if n > MAX_N or m > MAX_M or not 1 <= n_alpha <= MAX_ALPHAS or max_iter < 0:
+        raise ValueError(
+            f"{KERNEL} takes n <= {MAX_N}, m <= {MAX_M}, 1..{MAX_ALPHAS} alphas and max_iter >= 0; "
+            f"got n={n}, m={m}, {n_alpha} alphas, max_iter={max_iter}"
+        )
+    tables, barrier_alpha, barrier_beta = _cost_tables(cost, final_cost, n, m, x_init_seq)
+    q, r, x_ref, qf, xf_ref = tables
+    cost_init = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(1)
+    alphas_t = torch.tensor([float(a) for a in alphas], dtype=dtype, device=device)
+    inputs = [x_init_seq, u_init, cost_init, q, r, x_ref, qf, xf_ref, alphas_t]
+    shapes = [(horizon + 1, n), (horizon, m), (1,), (n, n), (m, m), (n,), (n, n), (n,), (n_alpha,)]
+    for t, shape in zip(inputs, shapes):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+            raise ValueError(
+                f"{KERNEL}: expected {shape} {dtype} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    inputs = [t.contiguous() for t in inputs]
+    outputs = [
+        x_init_seq.new_empty((horizon + 1, n)),
+        x_init_seq.new_empty((horizon, m)),
+        x_init_seq.new_empty((horizon, m)),
+        x_init_seq.new_empty((horizon, m, n)),
+        x_init_seq.new_empty((1, 3)),
+    ]
+
+    lib = _build.library(KERNEL)
+    count = lib.qt_fused_solve_workspace
+    count.restype = ctypes.c_longlong
+    count.argtypes = [ctypes.c_int] * 3
+    workspace_elems = count(plant_id, horizon, n_alpha)
+    if workspace_elems < 0:
+        raise ValueError(f"{KERNEL}: no workspace size for plant {plant_id}, H={horizon}, {n_alpha} alphas")
+    workspace = x_init_seq.new_empty((max(workspace_elems, 1),))
+
+    fn = lib.qt_fused_solve
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 5
+        + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    )
+    in_ptrs = (ctypes.c_void_p * len(inputs))(*[t.data_ptr() for t in inputs])
+    out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt,
+            float(reg), float(tol), barrier_alpha, barrier_beta, in_ptrs, out_ptrs,
+            workspace.data_ptr(), workspace_elems, stream,
+        )
+    _build.check(status, KERNEL)
+    _build.launches[KERNEL] += 1
+    return tuple(outputs)
+
+
+def fused_ilqr_solve_kernel(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x_init_seq: torch.Tensor,  # (H+1, n) initial rollout of u_init
+    u_init: torch.Tensor,  # (H, m)
+    cost_init: torch.Tensor,  # scalar
+    max_iter: int,
+    tol: float,
+    reg: float,
+    alphas: Sequence[float],
+) -> SolveOutputs:
+    """Run the full masked-iteration solve: K3 once on CUDA tensors, the plain form on CPU tensors.
+
+    Returns ``(x_seq (H+1, n), u_seq (H, m), k_seq (H, m), big_k_seq (H, m, n),
+    stats (1, 3) = [cost, iterations, converged])``. The JAX function's
+    ``interpret`` and ``lin_block`` arguments are not carried over: the first
+    selects Pallas's interpreter, the second blocks the linearize phase to
+    fit the TPU's scoped VMEM, and neither has a meaning on this card.
+
+    On CUDA the dynamics must be ``make_discrete`` of a plant the kernel knows
+    (``QuadrotorField``, ``CartPoleField``) and the costs those of
+    ``make_quadratic_cost`` / ``make_quadratic_final_cost``, with tables of
+    the trajectory's dtype on its device; anything else raises ``ValueError``.
+    """
+    if x_init_seq.is_cuda:
+        return _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas)
+    if x_init_seq.device.type == "cpu":
+        return fused_ilqr_solve_kernel_plain(
+            dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas
+        )
+    raise ValueError(f"{KERNEL}: unsupported device {x_init_seq.device}")

@@ -14,13 +14,16 @@ from quattro_tpu_torch.solver.derivatives import (
 )
 from quattro_tpu_torch.solver.ilqr import (
     ILQRConfig,
+    ILQRLogs,
     ILQRSolution,
     hybrid_ilqr_solve,
     ilqr_solve,
     ilqr_solve_fused,
+    ilqr_solve_with_logs,
     pack_gain_tokens,
     unpack_gain_tokens,
 )
+from quattro_tpu_torch.solver.lqr import lqr_gain, solve_dare
 from quattro_tpu_torch.solver.riccati import (
     RiccatiResult,
     riccati_backward,
@@ -46,12 +49,16 @@ __all__ = [
     "quadratize_cost",
     "quadratize_final_cost",
     "ILQRConfig",
+    "ILQRLogs",
     "ILQRSolution",
     "hybrid_ilqr_solve",
     "ilqr_solve",
     "ilqr_solve_fused",
+    "ilqr_solve_with_logs",
     "pack_gain_tokens",
     "unpack_gain_tokens",
+    "lqr_gain",
+    "solve_dare",
     "RiccatiResult",
     "riccati_backward",
     "riccati_backward_auto",

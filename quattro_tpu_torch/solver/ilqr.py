@@ -6,8 +6,8 @@ Convergence contract: accept the first step size with cost <= current; stop
 when no step is accepted OR |J_prev - J_new| < tol (with ``adaptive_reg``,
 retry with a larger regularizer instead of stopping, up to ``reg_max``).
 
-The whole-solve megakernel (``ilqr_solve_fused``) and the logging solve are
-not ported yet.
+``ilqr_solve_fused`` runs the whole solve as one launch of kernel K3
+(``ops/fused_solve.py``) with fixed ``max_iter`` masked trips.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts
 from quattro_tpu_torch.solver.derivatives import (
     linearize_dynamics,
     quadratize_cost,
@@ -41,11 +42,6 @@ RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 FinalCost = Callable[[torch.Tensor], torch.Tensor]
 # predict(x_err_seq (H+1, n), prompt (W, m*(1+n))) -> (H - W, m*(1+n))
 GainPredictFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-MEGAKERNEL_TODO = (
-    "ROADMAP.md, Queue 2 K3 (with K5): the whole-solve megakernel is not ported yet"
-)
-
 
 class ILQRConfig(NamedTuple):
     """Solver configuration; same fields and defaults as the JAX package.
@@ -123,6 +119,24 @@ class ILQRSolution(NamedTuple):
     big_k_seq: torch.Tensor  # (H, m, n)
 
 
+class ILQRLogs(NamedTuple):
+    """Per-iteration solver telemetry, stacked over ``max_iter``.
+
+    These drive observability and training-data generation. ``valid[i]``
+    marks iterations actually executed; entries past them stay zero.
+    """
+
+    x_seq: torch.Tensor  # (max_iter, H+1, n) trajectory at iteration start
+    u_seq: torch.Tensor  # (max_iter, H, m) controls after the iteration's update
+    cost: torch.Tensor  # (max_iter,) cost at iteration start
+    new_cost: torch.Tensor  # (max_iter,) cost after the update
+    k_seq: torch.Tensor  # (max_iter, H, m)
+    big_k_seq: torch.Tensor  # (max_iter, H, m, n)
+    alpha: torch.Tensor  # (max_iter,) accepted step size (0 if none)
+    found_update: torch.Tensor  # (max_iter,) bool
+    valid: torch.Tensor  # (max_iter,) bool
+
+
 def _backward(config: ILQRConfig):
     if config.parallel_riccati is not None:  # legacy boolean override
         return riccati_backward_associative if config.parallel_riccati else riccati_backward
@@ -193,8 +207,116 @@ def ilqr_solve(
     return ILQRSolution(x_seq, u_seq, current_cost, iteration, done, k_seq, big_k_seq)
 
 
-def ilqr_solve_fused(*args, **kwargs) -> ILQRSolution:
-    raise NotImplementedError(MEGAKERNEL_TODO)
+def _initial_rollout(dynamics: Dynamics, x0: torch.Tensor, u_init: torch.Tensor) -> torch.Tensor:
+    """The open-loop rollout of ``u_init``, (H+1, n).
+
+    On the card it is one K2 launch with zero gains and the single step size
+    1 (u_t = u_init_t exactly), where ``simulate`` is a few hundred small
+    launches per time step; a plant K2 does not carry raises ``ValueError``
+    there, as it would in K3. CPU tensors take ``simulate``.
+    """
+    if not x0.is_cuda:
+        return simulate(dynamics, x0, u_init)
+    horizon, m = u_init.shape
+    n = x0.shape[0]
+    cand_x, _ = fused_feedback_rollouts(
+        dynamics, x0, x0.new_zeros((horizon, n)), u_init, u_init.new_zeros((horizon, m)),
+        u_init.new_zeros((horizon, m, n)), x0.new_ones((1,)),
+    )
+    return cand_x[0]
+
+
+def ilqr_solve_fused(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0: torch.Tensor,
+    u_init: torch.Tensor,
+    config: ILQRConfig = ILQRConfig(),
+) -> ILQRSolution:
+    """``ilqr_solve`` with every iteration phase inside one kernel (K3).
+
+    Linearization and quadratization, the backward Riccati pass, the all-alpha
+    line search and the convergence bookkeeping run as one launch of
+    ``ops/fused_solve.py`` with fixed ``config.max_iter`` masked trips: the
+    same convergence semantics as ``ilqr_solve`` and a step latency that does
+    not depend on the data. One host read (of ``stats``) per solve.
+
+    Constraints: static ``reg`` (no ``adaptive_reg``); on CUDA the dynamics
+    and costs must be ones the kernel knows (see ``fused_ilqr_solve_kernel``);
+    ``config.riccati``/``linesearch`` are ignored (everything is fused). On
+    CPU tensors the kernel's plain PyTorch form runs.
+    """
+    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_kernel
+
+    if config.adaptive_reg:
+        raise ValueError(
+            "ilqr_solve_fused runs every trip with the one reg it is given (the kernel "
+            "carries no mu-schedule); adaptive_reg needs ilqr_solve"
+        )
+    x_init = _initial_rollout(dynamics, x0, u_init)
+    cost_init = trajectory_cost(cost, final_cost, x_init, u_init)
+    x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_kernel(
+        dynamics, cost, final_cost, x_init, u_init, cost_init,
+        config.max_iter, config.tol, config.reg, tuple(config.alphas),
+    )
+    _, iterations, converged = stats[0].tolist()
+    return ILQRSolution(x_seq, u_seq, stats[0, 0], int(iterations), converged > 0.5, k_seq, big_k_seq)
+
+
+def ilqr_solve_with_logs(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0: torch.Tensor,
+    u_init: torch.Tensor,
+    config: ILQRConfig = ILQRConfig(),
+) -> Tuple[ILQRSolution, ILQRLogs]:
+    """Pure iLQR with early exit, emitting per-iteration logs.
+
+    Used by the training-data pipeline. Log buffers have a fixed ``max_iter``
+    capacity and are written at the iteration index; entries past
+    ``iterations`` keep their zero-init and ``valid=False``.
+    """
+    x_seq = simulate(dynamics, x0, u_init)
+    u_seq = u_init
+    current_cost = trajectory_cost(cost, final_cost, x_seq, u_init)
+    horizon, m = u_init.shape
+    n = x0.shape[0]
+    mi = config.max_iter
+
+    def zeros(*shape, dtype=x_seq.dtype):
+        return torch.zeros((mi, *shape), dtype=dtype, device=x0.device)
+
+    logs = ILQRLogs(
+        x_seq=zeros(horizon + 1, n), u_seq=zeros(horizon, m), cost=zeros(), new_cost=zeros(),
+        k_seq=zeros(horizon, m), big_k_seq=zeros(horizon, m, n), alpha=zeros(),
+        found_update=zeros(dtype=torch.bool), valid=zeros(dtype=torch.bool),
+    )
+    iteration, done, reg = 0, False, config.reg
+    while iteration < mi and not done:
+        found, alpha, new_x, new_u, new_cost, k_seq, big_k_seq = _ilqr_iteration(
+            dynamics, cost, final_cost, config, x0, x_seq, u_seq, current_cost, reg=reg
+        )
+        found_h, small_h = (
+            bool(v) for v in torch.stack([found, (current_cost - new_cost).abs() < config.tol]).cpu()
+        )
+        if config.adaptive_reg:
+            # Same LM mu-schedule as ilqr_solve: a failed line search grows mu and retries.
+            reg_next = max(reg / config.reg_factor, config.reg) if found_h else min(reg * config.reg_factor, config.reg_max)
+            done = (found_h and small_h) or (not found_h and reg >= config.reg_max)
+            reg = reg_next
+        else:
+            done = (not found_h) or small_h
+        entry = ILQRLogs(x_seq, new_u, current_cost, new_cost, k_seq, big_k_seq, alpha, found, True)
+        for buf, val in zip(logs, entry):
+            buf[iteration] = val
+        x_seq, u_seq, current_cost = new_x, new_u, new_cost
+        iteration += 1
+    # Final gains: last valid backward pass.
+    last = max(iteration - 1, 0)
+    solution = ILQRSolution(x_seq, u_seq, current_cost, iteration, done, logs.k_seq[last], logs.big_k_seq[last])
+    return solution, logs
 
 
 def pack_gain_tokens(k_seq: torch.Tensor, big_k_seq: torch.Tensor) -> torch.Tensor:

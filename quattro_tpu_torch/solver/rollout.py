@@ -121,8 +121,8 @@ def line_search_fused(
 ) -> LineSearchResult:
     """``line_search`` with the rollouts as one K2 launch (CUDA) or its plain form (CPU).
 
-    On CUDA the dynamics must be a plant the kernel knows
-    (``make_discrete(QuadrotorField(params), dt, method)``); others raise.
+    On CUDA the dynamics must be a plant the kernel knows (``make_discrete``
+    of a ``QuadrotorField`` or a ``CartPoleField``); others raise.
     """
     cand_x, cand_u = fused_feedback_rollouts(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
     cand_cost = vmap(lambda xs, us: trajectory_cost(cost, final_cost, xs, us))(cand_x, cand_u)

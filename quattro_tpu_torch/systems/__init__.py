@@ -1,8 +1,11 @@
-"""Plant models as torch vector fields (counterpart of ``quattro_tpu.systems``).
+"""Plant models as torch vector fields (counterpart of ``quattro_tpu.systems``)."""
 
-The cart-pole plant is not ported yet (see ROADMAP.md).
-"""
-
+from quattro_tpu_torch.systems.cartpole import (
+    CartPoleField,
+    CartPoleParams,
+    cartpole_dynamics,
+    cartpole_linearized,
+)
 from quattro_tpu_torch.systems.integrators import DiscreteDynamics, euler_step, make_discrete, rk4_step
 from quattro_tpu_torch.systems.quadrotor import (
     QuadrotorField,
@@ -12,6 +15,10 @@ from quattro_tpu_torch.systems.quadrotor import (
 )
 
 __all__ = [
+    "CartPoleField",
+    "CartPoleParams",
+    "cartpole_dynamics",
+    "cartpole_linearized",
     "DiscreteDynamics",
     "euler_step",
     "rk4_step",

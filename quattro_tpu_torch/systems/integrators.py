@@ -3,8 +3,9 @@
 Counterpart of ``quattro_tpu/systems/integrators.py``. ``make_discrete``
 returns a small callable object instead of a closure: it carries the vector
 field, ``dt`` and the integrator, and -- when the field is a plant the CUDA
-rollout kernel knows (``field.plant``) -- the plant's kind and parameters,
-which ``ops/fused_rollout.py`` reads to pick its device-side plant.
+kernels know (``field.plant``) -- the plant's kind and parameters, which
+``ops/fused_rollout.py`` and ``ops/fused_solve.py`` read to pick their
+device-side plant.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Port parity: linearization and cost quadratization against quattro_tpu.
 
-A quadrotor trajectory of H=8 steps from a numpy seed, float64, rtol 1e-10.
+A quadrotor and a cart-pole trajectory of H=8 steps from a numpy seed, float64,
+rtol 1e-10.
 """
 
 import jax.numpy as jnp
@@ -65,4 +66,27 @@ def test_quadratize_cost_and_final_cost_match_jax():
     tfin = tsolver.quadratize_final_cost(tf, torch.from_numpy(x_seq[-1]))
     assert tfin._fields == jfin._fields
     for ref, out in zip(jfin, tfin):
+        _close(ref, out)
+
+
+def test_cartpole_linearize_and_quadratize_match_jax():
+    rng = np.random.default_rng(12)
+    x_seq = np.array([0.3, 0.5, 0.6, 1.5]) * rng.standard_normal((H + 1, 4))
+    u_seq = 5.0 * rng.standard_normal((H, 1))
+    ja, jb = jsolver.linearize_dynamics(
+        jsystems.make_discrete(jsystems.cartpole_dynamics, 0.01, "rk4"), jnp.asarray(x_seq), jnp.asarray(u_seq)
+    )
+    ta, tb = tsolver.linearize_dynamics(
+        tsystems.make_discrete(tsystems.CartPoleField(), 0.01, "rk4"), torch.from_numpy(x_seq), torch.from_numpy(u_seq)
+    )
+    assert ta.shape == (H, 4, 4) and tb.shape == (H, 4, 1)
+    _close(ja, ta)
+    _close(jb, tb)
+
+    q, r = [5.0, 0.1, 10.0, 0.1], [0.001]
+    jc = jsolver.make_quadratic_cost(jnp.asarray(q), jnp.asarray(r), jnp.zeros(4))
+    tc = tsolver.make_quadratic_cost(torch.tensor(q, dtype=torch.float64), torch.tensor(r, dtype=torch.float64),
+                                     torch.zeros(4, dtype=torch.float64))
+    for ref, out in zip(jsolver.quadratize_cost(jc, jnp.asarray(x_seq), jnp.asarray(u_seq)),
+                        tsolver.quadratize_cost(tc, torch.from_numpy(x_seq), torch.from_numpy(u_seq))):
         _close(ref, out)

@@ -124,8 +124,38 @@ def test_unported_solver_forms_name_their_roadmap_item():
     _, tprob, _ = bench_problem()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolver.ilqr_solve(*tprob, tsolver.ILQRConfig(riccati="assoc", max_iter=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.ilqr_solve_fused(*tprob)
+
+
+@pytest.mark.parametrize(
+    "options",
+    [dict(tol=0.0, max_iter=3), dict(tol=1.0, max_iter=12), dict(tol=0.0, max_iter=3, adaptive_reg=True)],
+    ids=["forced", "early-exit", "adaptive-reg"],
+)
+def test_ilqr_solve_with_logs_matches_jax(options):
+    """The solution and every log buffer, rtol 1e-8; rows past ``iterations`` stay zero and invalid."""
+    jprob, tprob, _ = bench_problem()
+    ref, ref_logs = jsolver.ilqr_solve_with_logs(*jprob, jsolver.ILQRConfig(riccati="seq", **options))
+    out, logs = tsolver.ilqr_solve_with_logs(*tprob, tsolver.ILQRConfig(riccati="seq", **options))
+    _close_solution(ref, out)
+    assert logs._fields == ref_logs._fields
+    for name in logs._fields:
+        got, expected = getattr(logs, name).numpy(), np.asarray(getattr(ref_logs, name))
+        assert got.shape == expected.shape and got.dtype == expected.dtype, name
+        np.testing.assert_allclose(got, expected, rtol=RTOL, atol=ATOL, err_msg=name)
+    assert logs.valid.sum() == out.iterations
+    if options["tol"] > 0.0:
+        assert out.iterations < options["max_iter"] and not logs.x_seq[out.iterations:].any()
+
+
+def test_ilqr_solve_with_logs_agrees_with_ilqr_solve():
+    _, tprob, _ = bench_problem()
+    cfg = tsolver.ILQRConfig(tol=1.0, max_iter=12, riccati="seq")
+    ref = tsolver.ilqr_solve(*tprob, cfg)
+    out, logs = tsolver.ilqr_solve_with_logs(*tprob, cfg)
+    assert out.iterations == ref.iterations and out.converged == ref.converged
+    for name in ("x_seq", "u_seq", "cost", "k_seq", "big_k_seq"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(), getattr(ref, name).numpy())
+    np.testing.assert_array_equal(logs.new_cost[out.iterations - 1].numpy(), out.cost.numpy())
 
 
 def test_gain_tokens_round_trip_like_jax():

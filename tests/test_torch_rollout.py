@@ -48,6 +48,34 @@ def test_plain_k2_matches_jax_fused_kernel(method):
     _close(ref_u, cand_u)
 
 
+@pytest.mark.parametrize("method", ["rk4", "euler"])
+def test_plain_k2_cartpole_matches_jax_fused_kernel(method):
+    rng = np.random.default_rng(6)
+    horizon = 10
+    inputs = (0.1 * rng.standard_normal(4), 0.1 * rng.standard_normal((horizon + 1, 4)),
+              0.5 * rng.standard_normal((horizon, 1)), 0.5 * rng.standard_normal((horizon, 1)),
+              0.5 * rng.standard_normal((horizon, 1, 4)), ALPHAS.copy())
+    jdyn = jsystems.make_discrete(jsystems.cartpole_dynamics, 0.01, method)
+    tdyn = tsystems.make_discrete(tsystems.CartPoleField(), 0.01, method)
+    ref_x, ref_u = j_fused_rollouts(jdyn, *(jnp.asarray(v) for v in inputs), interpret=True)
+    cand_x, cand_u = fused_rollout.fused_feedback_rollouts(tdyn, *(torch.from_numpy(v) for v in inputs))
+    assert cand_x.shape == (6, horizon + 1, 4) and cand_u.shape == (6, horizon, 1)
+    _close(ref_x, cand_x)
+    _close(ref_u, cand_u)
+
+
+def test_device_plant_descriptor_for_both_plants():
+    """What the kernels' C entry points get: plant id, parameters in order, integrator, dt."""
+    quad = tsystems.make_discrete(tsystems.QuadrotorField(tsystems.QuadrotorParams(mass=1.3)), 0.02, "euler")
+    pid, params, rk4, dt = fused_rollout.device_plant(quad, "test", 12, 4)
+    assert (pid, rk4, dt) == (0, 0, 0.02) and list(params) == [1.3, 0.02, 0.02, 0.04, 0.1, 9.81, 0.01]
+    cart = tsystems.make_discrete(tsystems.CartPoleField(), 0.01, "rk4")
+    pid, params, rk4, dt = fused_rollout.device_plant(cart, "test", 4, 1)
+    assert (pid, rk4, dt) == (1, 1, 0.01) and list(params) == [1.0, 0.1, 0.15, 9.81]
+    with pytest.raises(ValueError, match="n=4, m=1"):
+        fused_rollout.device_plant(cart, "test", 12, 4)
+
+
 def _problem():
     x_ref = np.zeros(12)
     x_ref[2] = 0.5
