@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. Build the three CUDA kernels from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
+1. Build the six CUDA sources (K1-K7) from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
 2. K1 (fused Riccati) against its plain PyTorch form on the card, on the
    bench problem's stages (H=100, n=12, m=4), float64 and float32.
 3. K2 (fused all-alpha rollouts) against its plain form, quadrotor RK4,
@@ -36,8 +36,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the same step with ``simulate`` as the initial rollout, for its latency.
    Then ``make_cartpole_mpc`` from [0.15, 0, 0.2, 0] with
    ``solver="megakernel"`` and in mode ``"blend"`` (K1, K2 and the LQR gain).
+8. The batched kernels (run after phase 6), on a warm-started batch of
+   ``benchmarks/suite.py``'s problem (quadrotor RK4, H=50) at B=512 and 2048,
+   float64 and float32: K4 on its column-major, batch2d, auto and packed
+   entry points against its plain form, lane by lane against K1 (bit for
+   bit), and with a bfloat16 stage stream (against its plain form, and
+   within 5e-2 of float32); K5 (B=2048, tile_s=8) against its plain form on
+   the packed tensors, and K5 -> K4 (packed) against K4 on the unpacked
+   stages (bit for bit); K6 and K7 (A=6) against their plain form and lane
+   by lane against K2 (bit for bit).
+9. ``batched_ilqr_solve`` at the suite's problem (x0 z in [0.2, 0.5], zero
+   controls, 4 forced iterations): backends "fused" (PyTorch line search, and
+   linesearch="fused" through K7), "fused_bf16" and "vmap", float32 at
+   B=512 and 2048 and float64 at B=512. One K4 launch per trip (and one K7
+   with linesearch="fused"); float64 "fused" equals "vmap" (iterations,
+   flags, cost rtol 1e-9, u atol 1e-8); solves/s of a warm call each.
+10. One fully fused batched trip through public entry points, K5 -> K4
+   (packed) -> ``line_search_batched2d`` (K6), held to the "fused" backend's
+   first trip, with the device idle share of that trip.
 
-Launch counters are zeroed just before each main-path run (phases 4, 5 and 7)
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9 and 10)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -94,6 +112,20 @@ SIMULATE_STEPS = 10  # megakernel steps timed with simulate as the initial rollo
 CARTPOLE_MEGAKERNEL_BAR = 0.15
 CARTPOLE_BLEND_BAR = 0.03
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.05, 0.01)
+# The batched path at benchmarks/suite.py's throughput problem: quadrotor RK4,
+# H=50, 4 forced iterations, at batch widths on both sides of the JAX
+# dispatch's 1024.
+BATCHES = (512, 2048)
+BATCH_H = 50
+BATCH_ITERS = 4
+# bfloat16 stage inputs against the exact float32 form: JAX's band
+# (tests/test_fused_riccati.py), normwise.
+BF16_BAND = 5e-2
+# The batched solve, "fused" against "vmap" in float64: JAX's tolerances for
+# its two backends (tests/test_fused_riccati.py).
+F64_BATCH_COST_RTOL = 1e-9
+F64_BATCH_U_ATOL = 1e-8
+K5_TILE_S = 8  # K5's packed layout: full 8 x 128 tiles at B=2048, as on the TPU
 # MPC steps traced for the device idle share. They go on from the end of the
 # closed loop: warm-started steps, as all but the first few of a loop are. (A
 # cold first step of the while solver takes many iterations of tens of
@@ -108,6 +140,11 @@ PEAK_BYTES = 3.35e12
 K1 = "fused_riccati_single"
 K2 = "fused_rollout_single"
 K3 = "fused_solve"
+K4 = "fused_riccati_batched"
+K5 = "fused_linquad"
+K6 = "fused_rollout_batched2d"  # launch count of fused_feedback_rollouts_batched2d
+K7 = "fused_rollout_batched"  # launch count of fused_feedback_rollouts_batched, and the source K6 shares
+SOURCES = (K1, K2, K3, K4, K5, K7)
 Q = [10.0, 10.0, 50.0, 1.0, 1.0, 1.0, 10.0, 10.0, 50.0, 1.0, 1.0, 1.0]
 QF = [100.0, 100.0, 500.0, 10.0, 10.0, 10.0, 100.0, 100.0, 500.0, 10.0, 10.0, 10.0]
 
@@ -376,6 +413,217 @@ def phase_k3(report):
                         )
 
 
+def suite_batch(dtype, batch, seed=0):
+    """benchmarks/suite.py's throughput problem: (dyn, cost, fcost, x0 (B, 12), u0 (B, H, 4)).
+
+    The bench problem's tables (Q, R = 0.01, barrier_alpha = 1000, Qf, x_ref
+    z = 0.5), x0 z drawn uniformly in [0.2, 0.5] from a numpy seed, zero controls.
+    """
+    dyn, cost, fcost, _, _ = bench_problem(dtype, BATCH_H)
+    x0 = torch.zeros(batch, 12, dtype=dtype, device="cuda")
+    x0[:, 2] = torch.from_numpy(0.2 + 0.3 * np.random.default_rng(seed).random(batch)).to(x0)
+    return dyn, cost, fcost, x0, torch.zeros(batch, BATCH_H, 4, dtype=dtype, device="cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def warm_batch(dtype, batch):
+    """A warm-started batch of the suite's problem and its first backward pass's stage data.
+
+    x0 also gets small seeded velocities and attitudes and the controls hover
+    plus noise, so that every trajectory's stages differ (at zero controls and
+    level attitude all A_t are equal, which would hide a lane read from the
+    wrong trajectory). Returns (dyn, cost, xs, us, stages, v_x_final, v_xx_final).
+    """
+    from torch.func import vmap
+
+    from quattro_tpu_torch.solver import linearize_dynamics, quadratize_cost, quadratize_final_cost, simulate
+
+    dyn, cost, fcost, x0, u0 = suite_batch(dtype, batch)
+    rng = np.random.default_rng(1)
+    x0[:, 3:12] = torch.from_numpy(0.1 * rng.standard_normal((batch, 9))).to(x0)
+    us = u0 + 2.4525 + torch.from_numpy(0.1 * rng.standard_normal(tuple(u0.shape))).to(u0)
+    xs = vmap(functools.partial(simulate, dyn))(x0, us)
+    a, b = vmap(functools.partial(linearize_dynamics, dyn))(xs, us)
+    exp = vmap(functools.partial(quadratize_cost, cost))(xs, us)
+    fin = vmap(functools.partial(quadratize_final_cost, fcost))(xs[:, -1])
+    return dyn, cost, xs, us, (a, b, exp), fin.v_x, fin.v_xx
+
+
+def stage_entries(n, m):
+    return 2 * n * n + 2 * n * m + m * m + n + m
+
+
+def k4_work(batch, horizon, n, m, dtype):
+    """(bytes, flops) of the batched backward pass: K1's step on every trajectory; gains only."""
+    size = torch.finfo(dtype).bits // 8
+    inputs = batch * (horizon * stage_entries(n, m) + n + n * n)
+    outputs = batch * horizon * (m + m * n)
+    return (inputs + outputs) * size, batch * k1_work(horizon, n, m, dtype)[1]
+
+
+def k5_work(batch, horizon, n, m, field_flops, dtype):
+    """(bytes, flops) of linearize + quadratize at every (b, t): the stage data written once."""
+    size = torch.finfo(dtype).bits // 8
+    inputs = batch * ((horizon + 1) * n + horizon * m) + n * n + m * m + n
+    outputs = batch * horizon * stage_entries(n, m)
+    linearize = (4 * field_flops + 6 * n) + (n + m) * (4 * 2 * field_flops + 12 * n)  # as in k3_work
+    quadratize = 2 * n * n + 2 * m * m + 30 * m
+    return (inputs + outputs) * size, batch * horizon * (linearize + quadratize)
+
+
+def k6_work(batch, horizon, n_alpha, dtype):
+    """(bytes, flops) of the all-alpha rollouts of a batch: K2's work on every trajectory."""
+    size = torch.finfo(dtype).bits // 8
+    n_bytes, flops = k2_work(horizon, n_alpha, dtype)
+    n, m = 12, 4
+    inputs = batch * (n + (horizon + 1) * n + horizon * (2 * m + m * n)) + n_alpha
+    outputs = n_alpha * batch * ((horizon + 1) * n + horizon * m)
+    return (inputs + outputs) * size, batch * flops
+
+
+def rel_errs(names, outs, refs):
+    return {name: rel_err(o, r) for name, o, r in zip(names, outs, refs)}
+
+
+def check(label, errs, bound):
+    log(f"{label}: rel err {errs} (bound {bound})")
+    if not all(np.isfinite(v) and v <= bound for v in errs.values()):
+        raise AssertionError(f"{label} disagrees with its plain form: {errs}")
+
+
+def phase_k4(report):
+    """K4 on its three entry points against its plain form, lane-wise against K1, and with a bfloat16 stream."""
+    from quattro_tpu_torch.ops import fused_riccati as fr
+    from quattro_tpu_torch.solver import CostExpansion
+
+    for batch in BATCHES:
+        for dtype in (torch.float64, torch.float32):
+            _, _, _, _, (a, b, exp), v_x, v_xx = warm_batch(dtype, batch)
+            args = (a, b, exp, v_x, v_xx, 1e-6)
+            ref = fr.riccati_backward_batched_fused_plain(*args)
+            tile_s = fr.default_tile_s(batch)
+            packed = fr.pack_stages((a, b, exp.l_xx, exp.l_uu, exp.l_ux, exp.l_x, exp.l_u), tile_s, BATCH_H)
+            runs = {
+                "column": lambda: fr.riccati_backward_batched_fused(*args),
+                "batch2d": lambda: fr.riccati_backward_batched_fused2d(*args),
+                "auto": lambda: fr.riccati_backward_batched_fused_auto(*args),
+                "packed": lambda: fr.riccati_backward_batched_fused2d(
+                    None, None, None, v_x, v_xx, 1e-6, tile_s=tile_s, packed_stage=packed, horizon=BATCH_H),
+            }
+            bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+            outs = {}
+            for entry, run in runs.items():
+                outs[entry] = run()
+                torch.cuda.synchronize()
+                check(f"K4 {entry} B={batch} {dtype}", rel_errs(("k", "K"), outs[entry], ref), bound)
+            # K4 runs K1's step unchanged, so a lane is one K1 launch on that trajectory, bit for bit.
+            for lane in (0, batch // 2, batch - 1):
+                k1 = fr.riccati_backward_fused_single(a[lane], b[lane], CostExpansion(*(e[lane] for e in exp)),
+                                                      v_x[lane], v_xx[lane], 1e-6)
+                if not (torch.equal(k1[0], outs["column"][0][lane]) and torch.equal(k1[1], outs["column"][1][lane])):
+                    raise AssertionError(f"K4 lane {lane} (B={batch}, {dtype}) differs from K1 on that trajectory")
+            log(f"K4 B={batch} {dtype}: lanes 0, {batch // 2}, {batch - 1} equal K1 bit for bit")
+            if dtype != torch.float32:
+                continue
+            out16 = fr.riccati_backward_batched_fused(*args, stream_dtype=torch.bfloat16)
+            ref16 = fr.riccati_backward_batched_fused_plain(*args, stream_dtype=torch.bfloat16)
+            check(f"K4 bf16 stream B={batch}", rel_errs(("k", "K"), out16, ref16), F32_KERNEL_REL)
+            band = rel_errs(("k", "K"), out16, ref)
+            log(f"K4 bf16 stream B={batch} against the exact float32 form: {band} (band {BF16_BAND})")
+            if not all(0.0 < v < BF16_BAND for v in band.values()):
+                raise AssertionError(f"K4 bf16 stream outside JAX's band of float32: {band}")
+            ms = time_ms(runs["column"], 50)
+            ms_packed = time_ms(runs["packed"], 50)
+            ms16 = time_ms(lambda: fr.riccati_backward_batched_fused(*args, stream_dtype=torch.bfloat16), 50)
+            plain_ms = time_ms(lambda: fr.riccati_backward_batched_fused_plain(*args), 1)
+            b_ms, b_by = bound_ms(k4_work(batch, BATCH_H, 12, 4, dtype), dtype)
+            log(f"K4 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms (packed input {ms_packed:.4f}, bf16 stream "
+                f"{ms16:.4f}), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
+            if batch == BATCHES[-1]:
+                report[K4] = dict(
+                    name=K4, route="cuda", source="quattro_tpu_torch/csrc/fused_riccati_batched.cu",
+                    replaces="quattro_tpu/ops/fused_riccati.py:59", launches=0,
+                    max_abs_err=max(float((o - r).abs().max()) for o, r in zip(outs["column"], ref)),
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                )
+
+
+def phase_k5(report):
+    """K5 against its plain form on the packed tensors, and K5 -> K4 against K4 on the unpacked stages."""
+    from quattro_tpu_torch.ops import fused_riccati as fr
+    from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused, linquad_batched_fused_plain
+
+    batch = BATCHES[-1]
+    for dtype in (torch.float64, torch.float32):
+        dyn, cost, xs, us, _, v_x, v_xx = warm_batch(dtype, batch)
+        out = linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S)
+        ref = linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=K5_TILE_S)
+        torch.cuda.synchronize()
+        bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+        check(f"K5 B={batch} tile_s={K5_TILE_S} {dtype}", rel_errs(fr.STAGE_NAMES, out, ref), bound)
+        chain = fr.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=K5_TILE_S,
+                                                    packed_stage=out, horizon=BATCH_H)
+        a, b, l_xx, l_uu, l_ux, l_x, l_u = (fr.unpack_stage(x, batch, BATCH_H, tail, K5_TILE_S)
+                                            for x, tail in zip(out, fr.stage_shapes(12, 4)))
+        direct = fr.riccati_backward_batched_fused(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x, v_xx, 1e-6)
+        if not all(torch.equal(c, d) for c, d in zip(chain, direct)):
+            raise AssertionError(f"K5 -> K4 (packed) differs from K4 on the unpacked stages ({dtype})")
+        log(f"K5 -> K4 B={batch} {dtype}: gains equal K4 on the unpacked stages bit for bit")
+        if dtype == torch.float32:
+            ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S), 50)
+            plain_ms = time_ms(lambda: linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=K5_TILE_S), 1)
+            b_ms, b_by = bound_ms(k5_work(batch, BATCH_H, 12, 4, 80, dtype), dtype)
+            log(f"K5 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                f"bound {b_ms:.2e} ms ({b_by})")
+            report[K5] = dict(
+                name=K5, route="cuda", source="quattro_tpu_torch/csrc/fused_linquad.cu",
+                replaces="quattro_tpu/ops/fused_linquad.py:61", launches=0,
+                max_abs_err=max(float((o - r).abs().max()) for o, r in zip(out, ref)),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            )
+
+
+def phase_k67(report):
+    """K6 and K7 (one kernel) against their plain form, and lane-wise against K2."""
+    from quattro_tpu_torch.ops import fused_riccati as fr
+    from quattro_tpu_torch.ops import fused_rollout as fro
+
+    for batch in BATCHES:
+        for dtype in (torch.float64, torch.float32):
+            dyn, _, xs, us, (a, b, exp), v_x, v_xx = warm_batch(dtype, batch)
+            k, big_k = fr.riccati_backward_batched_fused(a, b, exp, v_x, v_xx, 1e-6)
+            alphas = torch.tensor(ALPHAS, dtype=dtype, device="cuda")
+            args = (dyn, xs[:, 0], xs, us, k, big_k, alphas)
+            ref = fro.fused_feedback_rollouts_batched_plain(*args)
+            bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+            outs = {}
+            for name, fn in ((K7, fro.fused_feedback_rollouts_batched), (K6, fro.fused_feedback_rollouts_batched2d)):
+                outs[name] = fn(*args)
+                torch.cuda.synchronize()
+                check(f"{name} A=6 B={batch} {dtype}", rel_errs(("cand_x", "cand_u"), outs[name], ref), bound)
+            for lane in (0, batch // 2, batch - 1):
+                k2 = fro.fused_feedback_rollouts(dyn, xs[lane, 0], xs[lane], us[lane], k[lane], big_k[lane], alphas)
+                if not all(torch.equal(c, o[:, lane]) for c, o in zip(k2, outs[K7])):
+                    raise AssertionError(f"batched rollout lane {lane} (B={batch}, {dtype}) differs from K2")
+            log(f"K6/K7 B={batch} {dtype}: lanes 0, {batch // 2}, {batch - 1} equal K2 bit for bit")
+            if dtype != torch.float32:
+                continue
+            plain_ms = time_ms(lambda: fro.fused_feedback_rollouts_batched_plain(*args), 1)
+            b_ms, b_by = bound_ms(k6_work(batch, BATCH_H, len(ALPHAS), dtype), dtype)
+            for name, fn, line in ((K6, fro.fused_feedback_rollouts_batched2d, 150),
+                                   (K7, fro.fused_feedback_rollouts_batched, 374)):
+                ms = time_ms(lambda: fn(*args), 50)
+                log(f"{name} float32 A=6 B={batch} H={BATCH_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                    f"bound {b_ms:.2e} ms ({b_by})")
+                if batch == BATCHES[-1]:
+                    report[name] = dict(
+                        name=name, route="cuda", source="quattro_tpu_torch/csrc/fused_rollout_batched.cu",
+                        replaces=f"quattro_tpu/ops/fused_rollout.py:{line}", launches=0,
+                        max_abs_err=max(float((o - r).abs().max()) for o, r in zip(outs[name], ref)),
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    )
+
+
 def counted(kernels, report, fn):
     """Run one main-path run with the counters zeroed; fail if a kernel of it did not launch."""
     from quattro_tpu_torch.ops import _build
@@ -416,6 +664,123 @@ def phase_bench(report):
         rates[label] = 6.0 / (ms / 1e3)
         log(f"bench {label}: {ms:.2f} ms per 6-iteration solve, {rates[label]:.1f} iterations/s")
     return rates
+
+
+def phase_batch(report):
+    """The batched solve at the suite's problem: each backend, launches per trip, parity, solves/s."""
+    from quattro_tpu_torch.parallel import batched_ilqr_solve
+    from quattro_tpu_torch.solver import ILQRConfig
+
+    forced = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS)
+    runs = (
+        ("fused", forced, "fused", (K4,)),
+        ("fused_ls", forced._replace(linesearch="fused"), "fused", (K4, K7)),
+        ("fused_bf16", forced, "fused_bf16", (K4,)),
+        ("vmap", forced, "vmap", ()),
+    )
+    results = {}
+    for dtype, batches in ((torch.float64, BATCHES[:1]), (torch.float32, BATCHES)):
+        for batch in batches:
+            problem = suite_batch(dtype, batch)
+            sols = {}
+            for label, cfg, backend, kernels in runs:
+                if dtype == torch.float64 and label not in ("fused", "vmap"):
+                    continue
+                solve = functools.partial(batched_ilqr_solve, *problem, cfg, riccati_backend=backend)
+                sol, counts = counted(kernels, report, solve)
+                trips = int(sol.iterations.max())
+                timing = ""
+                if dtype == torch.float32:  # a second, warm call, synchronized, on the host clock
+                    start = time.perf_counter()
+                    solve()
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - start
+                    results[f"{label}_B{batch}"] = dict(seconds=seconds, solves_per_s=batch / seconds)
+                    timing = f"{seconds:.3f} s, {batch / seconds:.1f} solves/s, "
+                log(f"batched solve {label} B={batch} {dtype}: {timing}{trips} trips, launches {counts}, "
+                    f"mean cost {float(sol.cost.mean()):.6f}")
+                if trips != BATCH_ITERS or counts != {name: trips for name in kernels}:
+                    raise AssertionError(f"batched solve {label}: {trips} trips, launches {counts}; expected "
+                                         f"{BATCH_ITERS} trips and one launch of each of {kernels} per trip")
+                if not (torch.isfinite(sol.x_seq).all() and sol.x_seq.shape == (batch, BATCH_H + 1, 12)
+                        and torch.isfinite(sol.cost).all()):
+                    raise AssertionError(f"batched solve {label} B={batch} {dtype}: malformed solution")
+                sols[label] = sol
+            fused, vmap_sol = sols["fused"], sols["vmap"]
+            same_flags = bool(torch.equal(fused.iterations, vmap_sol.iterations)
+                              and torch.equal(fused.converged, vmap_sol.converged))
+            cost_rel = float(((fused.cost - vmap_sol.cost).abs() / vmap_sol.cost.abs()).max())
+            u_abs = float((fused.u_seq - vmap_sol.u_seq).abs().max())
+            if dtype == torch.float64:
+                log(f"batched solve B={batch} float64, fused against vmap: iterations/converged equal {same_flags}, "
+                    f"cost rel {cost_rel:.3e} (bound {F64_BATCH_COST_RTOL}), max |du| {u_abs:.3e} "
+                    f"(bound {F64_BATCH_U_ATOL})")
+                if not (same_flags and cost_rel <= F64_BATCH_COST_RTOL and u_abs <= F64_BATCH_U_ATOL):
+                    raise AssertionError("float64 batched solve: fused and vmap backends disagree")
+                continue
+            one = ILQRConfig(tol=0.0, max_iter=1)
+            one_rel = float(((batched_ilqr_solve(*problem, one, riccati_backend="fused").cost
+                              - batched_ilqr_solve(*problem, one, riccati_backend="vmap").cost).abs()
+                             / fused.cost.abs()).max())
+            agree = ((fused.iterations == vmap_sol.iterations)
+                     & ((fused.cost - vmap_sol.cost).abs() <= F32_SOLVE_COST_REL * vmap_sol.cost.abs()))
+            share = float(agree.float().mean())
+            bf16_rel = float(((sols["fused_bf16"].cost - fused.cost).abs() / fused.cost.abs()).max())
+            ls_rel = float(((sols["fused_ls"].cost - fused.cost).abs() / fused.cost.abs()).max())
+            log(f"batched solve B={batch} float32, fused against vmap: max cost rel after 1 iteration {one_rel:.3e}; "
+                f"after {BATCH_ITERS}: share of lanes with equal iterations and cost within {F32_SOLVE_COST_REL} "
+                f"{share:.4f}, max cost rel {cost_rel:.3e}; fused_ls against fused max cost rel {ls_rel:.3e}; "
+                f"fused_bf16 against fused {bf16_rel:.3e} (band {BF16_BAND})")
+            if not bf16_rel < BF16_BAND:
+                raise AssertionError(f"fused_bf16 solve outside the bf16 band of the exact solve: {bf16_rel}")
+            results[f"float32_B{batch}"] = dict(one_iteration_cost_rel=one_rel, agree_share=share,
+                                                 cost_rel=cost_rel, fused_ls_cost_rel=ls_rel, bf16_cost_rel=bf16_rel)
+    return results
+
+
+def phase_batch_trip(report):
+    """One fully fused batched trip through public entry points: K5 -> K4 (packed) -> line_search_batched2d (K6).
+
+    Held to the first trip of the "fused" backend (torch.func derivatives, K4,
+    PyTorch line search) at float32's bound; the device idle share of the trip
+    and of one "fused" trip with K7 are read under torch.profiler.
+    """
+    from torch.func import vmap
+
+    from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused
+    from quattro_tpu_torch.ops.fused_riccati import riccati_backward_batched_fused2d
+    from quattro_tpu_torch.parallel import batched_ilqr_solve
+    from quattro_tpu_torch.solver import (
+        ILQRConfig, line_search_batched2d, quadratize_final_cost, simulate, trajectory_cost,
+    )
+
+    batch = BATCHES[-1]
+    dyn, cost, fcost, x0, u0 = suite_batch(torch.float32, batch)
+    xs = vmap(functools.partial(simulate, dyn))(x0, u0)
+    cs = vmap(functools.partial(trajectory_cost, cost, fcost))(xs, u0)
+    alphas = torch.tensor(ALPHAS, device="cuda")
+
+    def trip():
+        packed = linquad_batched_fused(dyn, cost, xs, u0, tile_s=K5_TILE_S)
+        fin = vmap(functools.partial(quadratize_final_cost, fcost))(xs[:, -1])
+        k, big_k = riccati_backward_batched_fused2d(None, None, None, fin.v_x, fin.v_xx, 1e-6, tile_s=K5_TILE_S,
+                                                    packed_stage=packed, horizon=BATCH_H)
+        return line_search_batched2d(dyn, cost, fcost, x0, xs, u0, k, big_k, cs, alphas)
+
+    (found, _, new_x, _, new_cost), counts = counted((K4, K5, K6), report, trip)
+    ref = batched_ilqr_solve(dyn, cost, fcost, x0, u0, ILQRConfig(tol=0.0, max_iter=1), riccati_backend="fused")
+    cost_rel = float(((new_cost - ref.cost).abs() / ref.cost.abs()).max())
+    trip_ms = wall_ms(trip)
+    idle = idle_share(trip)
+    one_trip = ILQRConfig(tol=0.0, max_iter=1, linesearch="fused")
+    solve_idle = idle_share(lambda: batched_ilqr_solve(dyn, cost, fcost, x0, u0, one_trip, riccati_backend="fused"))
+    log(f"fused batched trip K5 -> K4 -> K6, B={batch}: launches {counts}, {int(found.sum())} lanes accepted, "
+        f"cost rel against the fused backend's first trip {cost_rel:.3e} (bound {F32_SOLVE_COST_REL}); "
+        f"wall {trip_ms:.2f} ms, device idle share (profiled) {idle}; one-trip fused solve with K7, "
+        f"idle share {solve_idle}")
+    if counts != {K4: 1, K5: 1, K6: 1} or not (torch.isfinite(new_x).all() and cost_rel <= F32_SOLVE_COST_REL):
+        raise AssertionError(f"fused batched trip: launches {counts}, cost rel {cost_rel}")
+    return dict(trip_ms=trip_ms, idle_share=idle, one_trip_solve_idle_share=solve_idle, cost_rel=cost_rel)
 
 
 def wall_ms(fn, reps=2):
@@ -661,19 +1026,25 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
     start = time.perf_counter()
-    seconds = _build.build_all([K1, K2, K3])
+    seconds = _build.build_all(SOURCES)
     log(f"build: {seconds} s each, {time.perf_counter() - start:.1f} s wall")
 
     report = {}
     phase_k1(report)
     phase_k2(report)
     phase_k3(report)
+    phase_k4(report)
+    phase_k5(report)
+    phase_k67(report)
+    batched = phase_batch(report)
+    batched["trip"] = phase_batch_trip(report)
     rates = phase_bench(report)
     mpc = phase_mpc(report, root)
     mega = phase_megakernel(report)
-    log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc, "mpc_megakernel": mega}}))
+    log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc, "mpc_megakernel": mega,
+                                "batched": batched}}))
     print(smi)
-    print(json.dumps({"kernels": [report[K1], report[K2], report[K3]]}))
+    print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

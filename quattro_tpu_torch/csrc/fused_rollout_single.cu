@@ -14,8 +14,10 @@
 // instructions per step. The bytes (about 30 KB of inputs at H=100 in f32)
 // and the flops are negligible.
 // Design: one thread per candidate, the state in registers, the whole horizon
-// inside one launch. All candidates run the same instruction stream, so the
-// warp never diverges. No fast-math: tan and 1/cos(pitch) keep full accuracy.
+// inside one launch; the thread's body is rollout_lane.cuh, which the batched
+// rollout kernel (K6/K7) shares. All candidates run the same instruction
+// stream, so the warp never diverges. No fast-math: tan and 1/cos(pitch) keep
+// full accuracy.
 // Outputs are written candidate-major, the layout the caller returns.
 //
 // C interface (no PyTorch header; bound with ctypes). Contiguous device
@@ -25,7 +27,7 @@
 
 #include <cuda_runtime.h>
 
-#include "plants.cuh"
+#include "rollout_lane.cuh"
 
 namespace {
 
@@ -39,39 +41,10 @@ __global__ void rollout_kernel(int H, int n_alpha, int rk4, P plant, qt::StepSiz
                                const T* __restrict__ alphas,
                                T* __restrict__ cand_x,
                                T* __restrict__ cand_u) {
-  constexpr int kN = P::N;
-  constexpr int kM = P::M;
   const int c = threadIdx.x;
   if (c >= n_alpha) return;
-  const T alpha = alphas[c];
-  T* xo = cand_x + (size_t)c * (H + 1) * kN;
-  T* uo = cand_u + (size_t)c * H * kM;
-
-  T x[kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    x[i] = x0[i];
-    xo[i] = x[i];
-  }
-
-  for (int t = 0; t < H; ++t) {
-    T dxr[kN];
-#pragma unroll
-    for (int i = 0; i < kN; ++i) dxr[i] = x[i] - x_ref[(size_t)t * kN + i];
-    T u[kM];
-#pragma unroll
-    for (int j = 0; j < kM; ++j) {
-      const T* kr = big_k + ((size_t)t * kM + j) * kN;
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < kN; ++i) acc += dxr[i] * kr[i];
-      u[j] = u_ref[(size_t)t * kM + j] + alpha * (k[(size_t)t * kM + j] + acc);
-      uo[(size_t)t * kM + j] = u[j];
-    }
-    qt::discrete_step(plant, rk4, h, x, u, x);
-#pragma unroll
-    for (int i = 0; i < kN; ++i) xo[(size_t)(t + 1) * kN + i] = x[i];
-  }
+  qt::rollout_lane(plant, rk4, h, H, alphas[c], x0, x_ref, u_ref, k, big_k,
+                   cand_x + (size_t)c * (H + 1) * P::N, cand_u + (size_t)c * H * P::M);
 }
 
 template <typename T, template <typename> class Plant>

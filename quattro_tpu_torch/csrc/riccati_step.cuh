@@ -1,6 +1,7 @@
 // One backward Riccati step for a whole CTA, shared by the single-trajectory
-// backward pass (fused_riccati_single.cu) and the whole-solve kernel
-// (fused_solve.cu), as riccati_step_tiles is shared by their TPU originals
+// backward pass (fused_riccati_single.cu), the whole-solve kernel
+// (fused_solve.cu) and the batched backward pass (fused_riccati_batched.cu),
+// as riccati_step_tiles is shared by their TPU originals
 // (quattro_tpu/ops/fused_riccati.py).
 //
 // Per step: the Q-expansion, an unrolled m x m Cholesky of Q_uu + reg I
@@ -13,6 +14,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace qt {
@@ -22,6 +24,24 @@ constexpr int kMMax = 8;
 
 __device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
 __device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
+
+// Stage readers: entry e of one stage tensor in the carry type T. K1 and K3
+// pass plain pointers to contiguous stage data of the carry type (p[e]); K4
+// passes Strided, which reads p[e * stride] of a stored type S, so one step
+// law serves the packed layout (stride tile_s * 128) and bf16 stage inputs,
+// which are widened exactly at load.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T, typename S>
+struct Strided {
+  const S* p;
+  long long stride;
+  __device__ __forceinline__ T operator[](int e) const {
+    return static_cast<T>(widen(p[(long long)e * stride]));
+  }
+};
 
 // Shared-memory state of the recursion: the (V_x, V_xx) carry and one step's
 // intermediates. Declare one per CTA as __shared__.
@@ -48,14 +68,14 @@ struct RiccatiScratch {
 // On entry s.vx / s.vxx hold the value function after this step (written by
 // all threads before a barrier or by the previous call); on exit they hold
 // the value function at this step. at (n,n), bt (n,m), lx (n), lu (m),
-// lxx (n,n), luu (m,m), lux (m,n) are this step's stage data in global
-// memory; k_out (m) and bigk_out (m,n) receive the gains; vx_out (n) and
-// vxx_out (n,n) receive the value function unless null. Ends with a barrier.
-template <typename T>
-__device__ __forceinline__ void riccati_step(RiccatiScratch<T>& s, int n, int m, T reg, const T* at,
-                                             const T* bt, const T* lx, const T* lu, const T* lxx,
-                                             const T* luu, const T* lux, T* k_out, T* bigk_out,
-                                             T* vx_out, T* vxx_out) {
+// lxx (n,n), luu (m,m), lux (m,n) are readers of this step's stage data in
+// global memory (row-major entries); k_out (m) and bigk_out (m,n) receive
+// the gains; vx_out (n) and vxx_out (n,n) receive the value function unless
+// null. Ends with a barrier.
+template <typename T, typename In>
+__device__ __forceinline__ void riccati_step(RiccatiScratch<T>& s, int n, int m, T reg, In at, In bt,
+                                             In lx, In lu, In lxx, In luu, In lux, T* k_out,
+                                             T* bigk_out, T* vx_out, T* vxx_out) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int nn = n * n;

@@ -1,28 +1,44 @@
-"""Single-trajectory fused backward Riccati pass (kernel K1) and its plain form.
+"""Fused backward Riccati passes (kernels K1 and K4) and their plain forms.
 
-Counterpart of ``quattro_tpu/ops/fused_riccati.py::riccati_backward_fused_single``
-(step law ``riccati_step_tiles``). On CUDA tensors the whole H-step recursion
-runs as one launch of ``csrc/fused_riccati_single.cu``; on CPU tensors the
-plain PyTorch form below computes the same function. There is no fallback
-from one to the other: a CUDA input the kernel cannot take raises.
+Counterparts of ``quattro_tpu/ops/fused_riccati.py``:
 
-Same algebraic form as the TPU kernel: no explicit symmetrization of V_xx,
-V_xx' = Q_xx - G'Q_ux - reg G'G, gains k = -g_u, K = -G.
+- ``riccati_backward_fused_single`` (K1, step law ``riccati_step_tiles``):
+  one trajectory, the whole H-step recursion as one launch of
+  ``csrc/fused_riccati_single.cu``.
+- ``riccati_backward_batched_fused``, ``riccati_backward_batched_fused2d``
+  and ``riccati_backward_batched_fused_auto`` (K4): a batch of trajectories,
+  one launch of ``csrc/fused_riccati_batched.cu``, which runs K1's step on
+  every trajectory. The TPU's two batch layouts (batch on lanes; every matrix
+  entry a (tile_s, 128) tile) are one kernel here; the packed layout survives
+  as the ``packed_stage=`` input that ``ops/fused_linquad.py`` (K5) writes.
+
+On CUDA tensors the kernels run; on CPU tensors the plain PyTorch forms below
+compute the same functions. There is no fallback from one to the other: a
+CUDA input a kernel cannot take raises.
+
+Same algebraic form as the TPU kernels: no explicit symmetrization of V_xx,
+V_xx' = Q_xx - G'Q_ux - reg G'G, gains k = -g_u, K = -G. (The TPU batch2d
+kernel re-symmetrizes its carry, which changes only rounding.)
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.func import vmap
 
 from quattro_tpu_torch.ops import _build
 
 KERNEL = "fused_riccati_single"
+BATCHED_KERNEL = "fused_riccati_batched"
 MAX_N = 16
 MAX_M = 8
+LANE = 128
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+_STORED_BF16 = 2  # the batched kernel's code for bfloat16 stage inputs
 
 RiccatiOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -168,3 +184,266 @@ def riccati_backward_fused_single(
     if a_seq.device.type == "cpu":
         return riccati_backward_fused_single_plain(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg)
     raise ValueError(f"{KERNEL}: unsupported device {a_seq.device}")
+
+
+# ---------------------------------------------------------------------------
+# Batched backward pass (K4)
+# ---------------------------------------------------------------------------
+
+# Stage tensors in the packed order of the TPU kernels (and of K5's output).
+STAGE_NAMES = ("a", "b", "l_xx", "l_uu", "l_ux", "l_x", "l_u")
+
+
+def stage_shapes(n: int, m: int):
+    """Trailing shape of each stage tensor, in ``STAGE_NAMES`` order."""
+    return ((n, n), (n, m), (n, n), (m, m), (m, n), (n,), (m,))
+
+
+def default_tile_s(batch: int) -> int:
+    """The TPU kernels' default ``tile_s``: ``min(8, ceil(batch / 128))``, at least 1."""
+    return max(1, min(8, -(-batch // LANE)))
+
+
+def pack_stage(x: torch.Tensor, tile_s: int) -> torch.Tensor:
+    """(B, h_pad, *tail) -> (nb * h_pad, entries, tile_s, 128), the packed stage layout.
+
+    Axis 0 is batch block then time, axis 1 the row-major matrix entry, the
+    last two the in-block trajectory ``b = blk * tile_s * 128 + s * 128 + l``.
+    """
+    batch, h_pad = x.shape[:2]
+    entries = math.prod(x.shape[2:])
+    nb = batch // (tile_s * LANE)
+    xr = x.reshape(nb, tile_s, LANE, h_pad, entries)
+    return xr.permute(0, 3, 4, 1, 2).reshape(nb * h_pad, entries, tile_s, LANE)
+
+
+def pack_stages(stages: Sequence[torch.Tensor], tile_s: int, h_pad: int):
+    """The seven natural stage tensors (B, H, ...), ``STAGE_NAMES`` order, packed for K4.
+
+    The horizon is padded to ``h_pad`` with identity stages prepended in time
+    (A = I, B = 0, l_uu = I, the rest 0), which leave the backward recursion's
+    carry unchanged.
+    """
+    n, m = stages[1].shape[-2:]
+    packed = []
+    for x, eye in zip(stages, (n, None, None, m, None, None, None)):
+        pad = x.new_zeros((x.shape[0], h_pad - x.shape[1]) + tuple(x.shape[2:]))
+        if eye is not None:
+            pad[:] = torch.eye(eye, dtype=x.dtype, device=x.device)
+        packed.append(pack_stage(torch.cat([pad, x], dim=1), tile_s))
+    return packed
+
+
+def unpack_stage(x: torch.Tensor, batch: int, horizon: int, shape_tail: tuple, tile_s: int) -> torch.Tensor:
+    """Packed (nb * h_pad, e, tile_s, 128) -> (B, H, *shape_tail), dropping the prepended pad steps."""
+    entries = x.shape[1]
+    nb = batch // (tile_s * LANE)
+    h_pad = x.shape[0] // nb
+    xr = x.reshape(nb, h_pad, entries, tile_s, LANE)
+    out = xr.permute(0, 3, 4, 1, 2).reshape(batch, h_pad, entries)
+    return out[:, h_pad - horizon:].reshape((batch, horizon) + tuple(shape_tail))
+
+
+def _stream_code(stream_dtype, dtype) -> int:
+    if stream_dtype is None or stream_dtype == dtype:
+        return 0
+    if stream_dtype == torch.bfloat16:
+        return _STORED_BF16
+    raise TypeError(f"{BATCHED_KERNEL} streams stage inputs in bfloat16 or in the carry dtype, got {stream_dtype}")
+
+
+def _round_stages(stages, stream_dtype):
+    """The plain form's stream: stage inputs rounded through ``stream_dtype`` (round to nearest even)."""
+    if _stream_code(stream_dtype, stages[0].dtype) == 0:
+        return stages
+    return [x.to(stream_dtype).to(x.dtype) for x in stages]
+
+
+def riccati_backward_batched_fused_plain(
+    a_seq: torch.Tensor,
+    b_seq: torch.Tensor,
+    cost_exp: Sequence[torch.Tensor],
+    v_x_final: torch.Tensor,
+    v_xx_final: torch.Tensor,
+    reg: float = 1e-6,
+    stream_dtype=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of K4: K1's ``riccati_step`` over a leading batch axis.
+
+    With ``stream_dtype=torch.bfloat16`` the stage inputs are rounded through
+    bfloat16 first, as the kernel stores them; the carry, the arithmetic and
+    the gains stay in the input dtype.
+    """
+    batch, horizon, n, _ = a_seq.shape
+    m = b_seq.shape[-1]
+    l_x, l_u, l_xx, l_uu, l_ux = cost_exp
+    a, b, l_xx, l_uu, l_ux, l_x, l_u = _round_stages([a_seq, b_seq, l_xx, l_uu, l_ux, l_x, l_u], stream_dtype)
+    step = vmap(riccati_step, in_dims=(0,) * 9 + (None,))
+    k_seq = a_seq.new_empty((batch, horizon, m))
+    big_k_seq = a_seq.new_empty((batch, horizon, m, n))
+    v_x, v_xx = v_x_final, v_xx_final
+    for t in reversed(range(horizon)):
+        g_u, g_x, v_x, v_xx = step(a[:, t], b[:, t], l_x[:, t], l_u[:, t], l_xx[:, t], l_uu[:, t], l_ux[:, t],
+                                   v_x, v_xx, reg)
+        k_seq[:, t] = -g_u
+        big_k_seq[:, t] = -g_x
+    return k_seq, big_k_seq
+
+
+def _launch_batched(stages, v_x_final, v_xx_final, reg, stream_dtype, horizon, packed=None):
+    """One K4 launch. ``stages`` in ``STAGE_NAMES`` order, natural (B, H, ...) or,
+    with ``packed=(tile_s, h_pad)``, in the packed layout."""
+    batch, n = v_x_final.shape
+    m = stages[6].shape[1 if packed else -1]  # l_u: (nb * h_pad, m, tile_s, 128) or (B, H, m)
+    dtype, device = v_x_final.dtype, v_x_final.device
+    if n > MAX_N or m > MAX_M:
+        raise ValueError(f"{BATCHED_KERNEL} takes n <= {MAX_N} and m <= {MAX_M}; got n={n}, m={m}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"{BATCHED_KERNEL} takes float32 or float64, got {dtype}")
+    stored = _stream_code(stream_dtype, dtype)
+    tails = stage_shapes(n, m)
+    if packed is None:
+        shapes = [(batch, horizon) + tail for tail in tails]
+        chunk, h_pad = 0, 0
+    else:
+        tile_s, h_pad = packed
+        chunk = tile_s * LANE
+        shapes = [(batch // chunk * h_pad, math.prod(tail), tile_s, LANE) for tail in tails]
+    names = STAGE_NAMES + ("v_x_final", "v_xx_final")
+    shapes += [(batch, n), (batch, n, n)]
+    for name, t, shape in zip(names, [*stages, v_x_final, v_xx_final], shapes):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+            raise ValueError(
+                f"{BATCHED_KERNEL}: {name} expected {shape} {dtype} on {device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    stages = [(t.to(stream_dtype) if stored else t).contiguous() for t in stages]
+    terminal = [v_x_final.contiguous(), v_xx_final.contiguous()]
+    k_seq = v_x_final.new_empty((batch, horizon, m))
+    big_k_seq = v_x_final.new_empty((batch, horizon, m, n))
+
+    lib = _build.library(BATCHED_KERNEL)
+    fn = lib.qt_fused_riccati_batched
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5
+    stage_ptrs = (ctypes.c_void_p * len(stages))(*[t.data_ptr() for t in stages])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            _DTYPES[dtype], stored, int(packed is not None), batch, horizon, n, m, chunk, h_pad, float(reg),
+            stage_ptrs, *[t.data_ptr() for t in terminal], k_seq.data_ptr(), big_k_seq.data_ptr(), stream,
+        )
+    _build.check(status, BATCHED_KERNEL)
+    _build.launches[BATCHED_KERNEL] += 1
+    return k_seq, big_k_seq
+
+
+def _batched(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype):
+    if a_seq.is_cuda:
+        l_x, l_u, l_xx, l_uu, l_ux = cost_exp
+        return _launch_batched([a_seq, b_seq, l_xx, l_uu, l_ux, l_x, l_u], v_x_final, v_xx_final, reg,
+                               stream_dtype, a_seq.shape[1])
+    if a_seq.device.type == "cpu":
+        return riccati_backward_batched_fused_plain(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype)
+    raise ValueError(f"{BATCHED_KERNEL}: unsupported device {a_seq.device}")
+
+
+def riccati_backward_batched_fused(
+    a_seq: torch.Tensor,  # (B, H, n, n)
+    b_seq: torch.Tensor,  # (B, H, n, m)
+    cost_exp: Sequence[torch.Tensor],  # CostExpansion fields (B, H, ...)
+    v_x_final: torch.Tensor,  # (B, n)
+    v_xx_final: torch.Tensor,  # (B, n, n)
+    reg: float = 1e-6,
+    stream_dtype=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched backward pass: ``(k (B, H, m), K (B, H, m, n))``.
+
+    CUDA tensors launch K4 once; CPU tensors take the plain form.
+    ``stream_dtype=torch.bfloat16`` stores the stage inputs (A, B, the cost
+    expansion) in bfloat16, widened at load; the carry, the arithmetic and the
+    gains stay in ``a_seq.dtype`` (about 1e-3 relative error on the gains).
+
+    The JAX function's ``interpret``, ``tile_b`` and ``block_t`` are not
+    carried over: they select Pallas's interpreter and size the TPU's VMEM
+    tiles, and change no result. The kernel reads the natural layout, so no
+    batch or horizon padding is needed.
+    """
+    return _batched(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype)
+
+
+def riccati_backward_batched_fused2d(
+    a_seq: Optional[torch.Tensor],  # (B, H, n, n), or None with packed_stage
+    b_seq: Optional[torch.Tensor],  # (B, H, n, m)
+    cost_exp: Optional[Sequence[torch.Tensor]],
+    v_x_final: torch.Tensor,  # (B, n)
+    v_xx_final: torch.Tensor,  # (B, n, n)
+    reg: float = 1e-6,
+    tile_s: Optional[int] = None,
+    block_t: int = 2,
+    stream_dtype=None,
+    packed_stage: Optional[Sequence[torch.Tensor]] = None,
+    horizon: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched backward pass, also from the packed stage layout.
+
+    Without ``packed_stage`` it computes what ``riccati_backward_batched_fused``
+    computes (one K4 launch on CUDA); ``tile_s`` and ``block_t`` then change
+    nothing. ``packed_stage``: the seven stage tensors ``(a, b, l_xx, l_uu,
+    l_ux, l_x, l_u)``, each ``(nb * h_pad, entries, tile_s, 128)`` with the
+    horizon pre-padded, as ``ops/fused_linquad.py::linquad_batched_fused``
+    writes them; ``a_seq``/``b_seq``/``cost_exp`` may be None, ``horizon``
+    (the unpadded horizon) is required and the batch (from ``v_x_final``) must
+    be a multiple of ``tile_s * 128``. K4 reads that layout in place; the plain
+    form (CPU) unpacks it first.
+
+    The JAX function's ``interpret`` is not carried over. Returns
+    ``(k (B, H, m), K (B, H, m, n))``.
+    """
+    if packed_stage is None:
+        return _batched(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype)
+    batch, n = v_x_final.shape
+    if tile_s is None:
+        tile_s = default_tile_s(batch)
+    chunk = tile_s * LANE
+    if batch % chunk:
+        raise ValueError(
+            f"packed_stage path needs batch % (tile_s*128) == 0 (got batch={batch}, tile_s={tile_s})"
+        )
+    if horizon is None:
+        raise ValueError("packed_stage path needs the unpadded horizon")
+    h_pad = packed_stage[0].shape[0] // (batch // chunk)
+    if h_pad % block_t:
+        raise ValueError(f"packed h_pad {h_pad} must be divisible by block_t {block_t}")
+    if h_pad < horizon:
+        raise ValueError(f"packed h_pad {h_pad} is shorter than the horizon {horizon}")
+    if v_x_final.is_cuda:
+        return _launch_batched(list(packed_stage), v_x_final, v_xx_final, reg, stream_dtype, horizon,
+                               packed=(tile_s, h_pad))
+    if v_x_final.device.type != "cpu":
+        raise ValueError(f"{BATCHED_KERNEL}: unsupported device {v_x_final.device}")
+    m = packed_stage[6].shape[1]
+    a, b, l_xx, l_uu, l_ux, l_x, l_u = (
+        unpack_stage(x, batch, horizon, tail, tile_s) for x, tail in zip(packed_stage, stage_shapes(n, m))
+    )
+    return riccati_backward_batched_fused_plain(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x_final, v_xx_final, reg,
+                                                stream_dtype)
+
+
+def riccati_backward_batched_fused_auto(
+    a_seq: torch.Tensor,
+    b_seq: torch.Tensor,
+    cost_exp: Sequence[torch.Tensor],
+    v_x_final: torch.Tensor,
+    v_xx_final: torch.Tensor,
+    reg: float = 1e-6,
+    stream_dtype=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched backward pass for any batch width: one K4 launch on CUDA.
+
+    The JAX dispatcher picks its batch2d kernel from B >= 1024 (with little
+    padding) and its column-major kernel below: two TPU layouts of one
+    function, whose speeds cross over on the TPU. On this card one kernel
+    serves every width, so there is no threshold to carry over.
+    """
+    return _batched(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype)

@@ -1,22 +1,31 @@
-"""All-alpha closed-loop rollouts (kernel K2) and their plain form.
+"""All-alpha closed-loop rollouts (kernels K2, K6, K7) and their plain forms.
 
-Counterpart of ``quattro_tpu/ops/fused_rollout.py::fused_feedback_rollouts``:
+Counterparts of ``quattro_tpu/ops/fused_rollout.py``:
 
     u_t = u_ref_t + alpha * (k_t + K_t (x_t - x_ref_t));  x_{t+1} = f(x_t, u_t)
 
-for every alpha at once, returning ``(cand_x (A, H+1, n), cand_u (A, H, m))``.
-The TPU kernel traces the user's dynamics into its body. A CUDA kernel cannot,
-so ``csrc/fused_rollout_single.cu`` carries the plants it knows (quadrotor
-and cart-pole, ``csrc/plants.cuh``) as device functions, and the wrapper
-reads the plant descriptor of the discrete map
-(``systems.integrators.DiscreteDynamics``). On CUDA tensors a plant the kernel
-does not know raises ``ValueError``; CPU tensors take the plain form with the
-dynamics callable itself. Costs stay outside, as on the TPU.
+for every alpha at once. ``fused_feedback_rollouts`` (K2) rolls out one
+trajectory, returning ``(cand_x (A, H+1, n), cand_u (A, H, m))``;
+``fused_feedback_rollouts_batched`` (K7) and
+``fused_feedback_rollouts_batched2d`` (K6) roll out a batch, returning
+``(A, B, H+1, n), (A, B, H, m)``. K6 and K7 are one function in two TPU lane
+layouts, so both launch one kernel here (``csrc/fused_rollout_batched.cu``),
+whose every lane runs K2's per-thread body; each entry point keeps its own
+launch count.
+
+The TPU kernels trace the user's dynamics into their bodies. A CUDA kernel
+cannot, so the kernels carry the plants they know (quadrotor and cart-pole,
+``csrc/plants.cuh``) as device functions, and the wrappers read the plant
+descriptor of the discrete map (``systems.integrators.DiscreteDynamics``). On
+CUDA tensors a plant the kernels do not know raises ``ValueError``; CPU
+tensors take the plain forms with the dynamics callable itself. Costs stay
+outside, as on the TPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Callable, Tuple
 
 import torch
@@ -25,6 +34,8 @@ from torch.func import vmap
 from quattro_tpu_torch.ops import _build
 
 KERNEL = "fused_rollout_single"
+BATCHED_KERNEL = "fused_rollout_batched"  # the source of K6 and K7, and K7's launch count
+BATCHED2D_KERNEL = "fused_rollout_batched2d"  # K6's launch count
 # Plants with device code in csrc/plants.cuh: name -> (kernel's plant id, n, m).
 DEVICE_PLANTS = {"quadrotor": (0, 12, 4), "cartpole": (1, 4, 1)}
 SUPPORTED_PLANTS = tuple(DEVICE_PLANTS)
@@ -135,3 +146,102 @@ def fused_feedback_rollouts(
     if x0.device.type == "cpu":
         return fused_feedback_rollouts_plain(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
     raise ValueError(f"{KERNEL}: unsupported device {x0.device}")
+
+
+def fused_feedback_rollouts_batched_plain(
+    dynamics: Dynamics,
+    x0: torch.Tensor,
+    x_ref_seq: torch.Tensor,
+    u_ref_seq: torch.Tensor,
+    k_seq: torch.Tensor,
+    big_k_seq: torch.Tensor,
+    alphas: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of K6/K7: K2's plain form over a leading batch axis, transposed to (A, B, ...)."""
+    horizon = u_ref_seq.shape[1]
+    per_lane = vmap(partial(fused_feedback_rollouts_plain, dynamics), in_dims=(0, 0, 0, 0, 0, None))
+    cand_x, cand_u = per_lane(x0, x_ref_seq[:, :horizon], u_ref_seq, k_seq, big_k_seq, alphas)
+    return cand_x.transpose(0, 1).contiguous(), cand_u.transpose(0, 1).contiguous()
+
+
+def _launch_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
+    batch, horizon, m = u_ref_seq.shape
+    n = x0.shape[-1]
+    n_alpha = alphas.shape[0]
+    plant_id, params, rk4, dt = device_plant(dynamics, count, n, m)
+    dtype = x0.dtype
+    if dtype not in DTYPES:
+        raise TypeError(f"{count} takes float32 or float64, got {dtype}")
+    ref_rows = x_ref_seq.shape[1] if x_ref_seq.dim() == 3 else -1
+    inputs = [x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)]
+    shapes = [(batch, n), (batch, max(ref_rows, horizon), n), (batch, horizon, m), (batch, horizon, m),
+              (batch, horizon, m, n), (n_alpha,)]
+    for t, shape in zip(inputs, shapes):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x0.device:
+            raise ValueError(
+                f"{count}: expected {shape} {dtype} on {x0.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    inputs = [t.contiguous() for t in inputs]
+    cand_x = x0.new_empty((n_alpha, batch, horizon + 1, n))
+    cand_u = x0.new_empty((n_alpha, batch, horizon, m))
+
+    lib = _build.library(BATCHED_KERNEL)
+    fn = lib.qt_fused_rollout_batched
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
+                   + [ctypes.c_void_p] * 9)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            DTYPES[dtype], plant_id, batch, horizon, n_alpha, ref_rows, rk4, params, dt,
+            *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr(), stream,
+        )
+    _build.check(status, count)
+    _build.launches[count] += 1
+    return cand_x, cand_u
+
+
+def _rollouts_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
+    if x0.is_cuda:
+        return _launch_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    if x0.device.type == "cpu":
+        return fused_feedback_rollouts_batched_plain(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    raise ValueError(f"{count}: unsupported device {x0.device}")
+
+
+def fused_feedback_rollouts_batched(
+    dynamics: Dynamics,
+    x0: torch.Tensor,  # (B, n)
+    x_ref_seq: torch.Tensor,  # (B, H+1, n) (only the first H rows are read)
+    u_ref_seq: torch.Tensor,  # (B, H, m)
+    k_seq: torch.Tensor,  # (B, H, m)
+    big_k_seq: torch.Tensor,  # (B, H, m, n)
+    alphas: torch.Tensor,  # (A,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-alpha rollouts of a trajectory batch: ``(cand_x (A, B, H+1, n), cand_u (A, B, H, m))``.
+
+    CUDA tensors launch the batched rollout kernel once (counted as K7); CPU
+    tensors take the plain form. The JAX function's ``interpret``, ``tile_b``
+    and ``block_t`` size the TPU's VMEM tiles and change no result; they are
+    not carried over.
+    """
+    return _rollouts_batched(BATCHED_KERNEL, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+
+
+def fused_feedback_rollouts_batched2d(
+    dynamics: Dynamics,
+    x0: torch.Tensor,  # (B, n)
+    x_ref_seq: torch.Tensor,  # (B, H+1, n) (only the first H rows are read)
+    u_ref_seq: torch.Tensor,  # (B, H, m)
+    k_seq: torch.Tensor,  # (B, H, m)
+    big_k_seq: torch.Tensor,  # (B, H, m, n)
+    alphas: torch.Tensor,  # (A,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as ``fused_feedback_rollouts_batched`` (counted as K6).
+
+    On the TPU it packs the (alpha, batch) pairs onto sublanes and lanes; its
+    ``interpret``, ``tile_s``, ``block_t`` and ``max_resident`` size VMEM
+    tiles and change no result, and are not carried over. Here it launches
+    the same kernel, one thread per (alpha, trajectory) pair.
+    """
+    return _rollouts_batched(BATCHED2D_KERNEL, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)

@@ -102,21 +102,30 @@ def fused_ilqr_solve_kernel_plain(
     return xs, us, k_out, big_k_out, stats
 
 
-def _cost_tables(cost, final_cost, n: int, m: int, like: torch.Tensor):
-    """The kernel's view of the costs: ``(q, r, x_ref, qf, xf_ref)`` tensors, alpha, beta."""
-    kinds = (getattr(cost, "kind", None), getattr(final_cost, "kind", None))
-    if kinds != SUPPORTED_COSTS:
+def cost_tables(kernel: str, cost, final_cost, n: int, m: int, like: torch.Tensor):
+    """A kernel's view of the costs: the tables as tensors, then alpha, beta.
+
+    ``(q, r, x_ref)`` of the running cost and, unless ``final_cost`` is None,
+    ``(qf, xf_ref)`` of the final cost. Costs not built by
+    ``make_quadratic_cost`` / ``make_quadratic_final_cost`` (no device code)
+    and tables of another shape, dtype or device raise ``ValueError``.
+    """
+    kinds = (getattr(cost, "kind", None),) + (() if final_cost is None else (getattr(final_cost, "kind", None),))
+    if kinds != SUPPORTED_COSTS[: len(kinds)]:
         raise ValueError(
-            f"{KERNEL} has device code for the costs of make_quadratic_cost and "
+            f"{kernel} has device code for the costs of make_quadratic_cost and "
             f"make_quadratic_final_cost (kinds {SUPPORTED_COSTS}); got kinds {kinds}. "
-            "Other callables need solver='while' (ilqr_solve)."
+            "Other callables need the PyTorch forms (solver='while', the solver's derivatives)."
         )
-    tables = [cost.q_mat, cost.r_mat, cost.x_ref, final_cost.qf_mat, final_cost.x_ref]
-    shapes = [(n, n), (m, m), (n,), (n, n), (n,)]
+    tables = [cost.q_mat, cost.r_mat, cost.x_ref]
+    shapes = [(n, n), (m, m), (n,)]
+    if final_cost is not None:
+        tables += [final_cost.qf_mat, final_cost.x_ref]
+        shapes += [(n, n), (n,)]
     for t, shape in zip(tables, shapes):
         if tuple(t.shape) != shape or t.dtype != like.dtype or t.device != like.device:
             raise ValueError(
-                f"{KERNEL}: cost table expected {shape} {like.dtype} on {like.device}, "
+                f"{kernel}: cost table expected {shape} {like.dtype} on {like.device}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
     return [t.contiguous() for t in tables], float(cost.barrier_alpha), float(cost.barrier_beta)
@@ -135,7 +144,7 @@ def _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter,
             f"{KERNEL} takes n <= {MAX_N}, m <= {MAX_M}, 1..{MAX_ALPHAS} alphas and max_iter >= 0; "
             f"got n={n}, m={m}, {n_alpha} alphas, max_iter={max_iter}"
         )
-    tables, barrier_alpha, barrier_beta = _cost_tables(cost, final_cost, n, m, x_init_seq)
+    tables, barrier_alpha, barrier_beta = cost_tables(KERNEL, cost, final_cost, n, m, x_init_seq)
     q, r, x_ref, qf, xf_ref = tables
     cost_init = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(1)
     alphas_t = torch.tensor([float(a) for a in alphas], dtype=dtype, device=device)

@@ -1,0 +1,235 @@
+"""Trajectory-batch iLQR: thousands of independent problems in one call.
+
+Counterpart of ``quattro_tpu/parallel/batch.py::batched_ilqr_solve``. Both
+backends are one masked loop over the batch, the loop that ``vmap`` of the
+JAX ``while_loop`` runs: one shared trip counter, lanes that are done keep
+their carry frozen, per-lane iteration counts, and one host read of
+``done.all()`` per trip. They differ in the backward pass:
+
+- ``"fused"`` / ``"fused_bf16"``: one batched backward-pass launch per trip
+  (kernel K4, ``ops/fused_riccati.py``), the stage inputs streamed in
+  bfloat16 for ``"fused_bf16"``;
+- ``"vmap"``: the solver's own backward pass (``ILQRConfig.riccati``) under
+  ``torch.func.vmap``, with a per-lane ``reg`` for ``adaptive_reg``.
+
+The derivatives run under ``torch.func.vmap``; the line search is
+``vmap(line_search)`` or, with ``linesearch="fused"``, one batched rollout
+launch per trip (kernel K7, ``solver/rollout.py::line_search_batched_fused``).
+
+``sharded_ilqr_solve`` (a device mesh) is not ported yet: ROADMAP.md, Queue 1
+item 16.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Optional
+
+import torch
+from torch.func import vmap
+
+from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
+from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
+from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRSolution, _backward
+from quattro_tpu_torch.solver.rollout import line_search, line_search_batched_fused, simulate, trajectory_cost
+
+BACKENDS = ("auto", "fused", "fused_bf16", "vmap")
+
+Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+FinalCost = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _fused_backend_applies(config: ILQRConfig, x0_batch, u_init_batch, device_type: Optional[str] = None) -> bool:
+    """Whether ``"auto"`` takes the fused backward pass (K4).
+
+    JAX's conditions with a CUDA device in place of the TPU backend: float32
+    data, a batch of at least 8, small (n, m), a static reg (the kernel carries
+    no mu-schedule) and the solver's algorithm knobs on their defaults, so a
+    pinned ``riccati=``/``parallel_riccati`` is never swapped for the fused
+    law; ``linesearch="fused"`` composes. ``device_type`` defaults to the
+    batch's device.
+    """
+    if device_type is None:
+        device_type = x0_batch.device.type
+    n = x0_batch.shape[-1]
+    m = u_init_batch.shape[-1]
+    return (
+        device_type == "cuda"
+        and x0_batch.dtype == torch.float32
+        and u_init_batch.dtype == torch.float32
+        and x0_batch.shape[0] >= 8
+        and n <= MAX_N
+        and m <= MAX_M
+        and not config.adaptive_reg
+        and config.riccati == "auto"
+        and config.parallel_riccati is None
+        and config.linesearch in ("xla", "fused")
+    )
+
+
+def batched_ilqr_solve(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch: torch.Tensor,  # (B, n)
+    u_init_batch: torch.Tensor,  # (B, H, m)
+    config: ILQRConfig = ILQRConfig(),
+    riccati_backend: str = "auto",
+) -> ILQRSolution:
+    """Solve a batch of independent iLQR problems.
+
+    ``riccati_backend``: ``"fused"`` (chosen by ``"auto"`` for float32 CUDA
+    batches of 8 or more, see ``_fused_backend_applies``), ``"fused_bf16"``
+    (bfloat16 stage inputs, about 1e-3 relative error on the gains; never
+    chosen by ``"auto"``) or ``"vmap"``. The two are equal in exact
+    arithmetic: float64 gives equal iterations and accepts. In float32 their
+    summation orders differ, which can flip a near-tie accept on single lanes
+    after a few iterations; both results are valid solves.
+
+    A forced ``"fused"`` on CPU tensors runs the kernels' plain forms. With
+    ``"vmap"``, lanes that would reach K1 (``riccati="fused"``, or ``"auto"``
+    on the card for a batch of one) and lanes with ``linesearch="fused"``
+    take K4 and K7, which run K1's and K2's per-lane law: K1 and K2 launch
+    through ctypes and cannot run under ``torch.func.vmap``.
+
+    Returns an ``ILQRSolution`` with a leading batch axis; ``iterations``
+    (int32) and ``converged`` (bool) are (B,) tensors.
+    """
+    if riccati_backend not in BACKENDS:
+        raise ValueError(f"Unknown riccati_backend: {riccati_backend!r}")
+    n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
+    if riccati_backend in ("fused", "fused_bf16"):
+        # Forcing the kernel is as loud as the auto dispatch is careful.
+        if config.adaptive_reg:
+            raise ValueError(
+                f"riccati_backend={riccati_backend!r} runs every trip with the one reg it "
+                "is given (the kernel carries no mu-schedule); the adaptive LM mu-schedule "
+                "needs riccati_backend='vmap'"
+            )
+        if config.riccati != "auto" or config.parallel_riccati is not None:
+            raise ValueError(
+                f"riccati_backend={riccati_backend!r} runs the fused sequential-law kernel; "
+                "pinned riccati=/parallel_riccati settings conflict — use riccati_backend='vmap'"
+            )
+        if n > MAX_N or m > MAX_M:
+            raise ValueError(
+                f"riccati_backend={riccati_backend!r} supports n <= {MAX_N}, m <= {MAX_M} (got n={n}, m={m})"
+            )
+        if x0_batch.is_cuda and x0_batch.dtype not in (torch.float32, torch.float64):
+            raise ValueError(
+                f"riccati_backend={riccati_backend!r} on CUDA requires float32 or float64 data "
+                f"(got {x0_batch.dtype})"
+            )
+    use_fused = riccati_backend in ("fused", "fused_bf16") or (
+        riccati_backend == "auto" and _fused_backend_applies(config, x0_batch, u_init_batch)
+    )
+    if use_fused:
+        return _batched_ilqr_solve_fused(
+            dynamics, cost, final_cost, x0_batch, u_init_batch, config,
+            stream_dtype=torch.bfloat16 if riccati_backend == "fused_bf16" else None,
+        )
+    if config.parallel_riccati is None and config.riccati == "auto":
+        config = config._replace(batch_hint=max(config.batch_hint, x0_batch.shape[0]))
+    backward = _lane_backward(config, x0_batch, u_init_batch)
+    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
+
+
+def _batched_ilqr_solve_fused(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch: torch.Tensor,
+    u_init_batch: torch.Tensor,
+    config: ILQRConfig,
+    stream_dtype=None,
+) -> ILQRSolution:
+    """The masked batched loop around the fused backward pass: one K4 launch per trip on CUDA."""
+
+    def backward(a, b, exp, v_x, v_xx, reg):
+        return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg, stream_dtype=stream_dtype)
+
+    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
+
+
+def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
+    """The ``"vmap"`` backend's backward pass over the batch: ``(a, b, exp, v_x, v_xx, reg) -> (k, K)``."""
+    n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
+    pinned_fused = config.parallel_riccati is None and config.riccati == "fused"
+    auto_single_on_card = (config.parallel_riccati is None and config.riccati == "auto" and x0_batch.is_cuda
+                           and config.batch_hint == 1 and n <= MAX_N and m <= MAX_M)
+    if pinned_fused or auto_single_on_card:
+        if config.adaptive_reg and pinned_fused:
+            raise ValueError(
+                "riccati='fused' runs every trip with the one reg it is given; the adaptive "
+                "LM mu-schedule needs riccati='seq'|'auto'"
+            )
+
+        def fused(a, b, exp, v_x, v_xx, reg):
+            return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg)
+
+        return fused
+    # reg is a (B,) tensor under adaptive_reg (see _masked_solve), else the static float.
+    per_lane = vmap(partial(_backward(config), use_chol=config.chol_solve),
+                    in_dims=(0, 0, 0, 0, 0, 0 if config.adaptive_reg else None))
+
+    def lanes(a, b, exp, v_x, v_xx, reg):
+        res = per_lane(a, b, exp, v_x, v_xx, reg)
+        return res.k_seq, res.big_k_seq
+
+    return lanes
+
+
+def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: ILQRConfig, backward) -> ILQRSolution:
+    """``vmap(ilqr_solve)``'s semantics as one loop over the batch (see the module docstring)."""
+    batch, horizon, m = u_init_batch.shape
+    n = x0_batch.shape[-1]
+    xs = vmap(partial(simulate, dynamics))(x0_batch, u_init_batch)
+    us = u_init_batch
+    cs = vmap(partial(trajectory_cost, cost, final_cost))(xs, us)
+    alphas = torch.as_tensor(config.alphas, dtype=xs.dtype, device=xs.device)
+    if config.linesearch == "fused":
+        def search(xs, us, k, big_k, cs):
+            return line_search_batched_fused(dynamics, cost, final_cost, x0_batch, xs, us, k, big_k, cs, alphas)
+    else:
+        lane = partial(line_search, dynamics, cost, final_cost, unroll=config.linesearch_unroll,
+                       fuse_cost=config.linesearch_fuse_cost)
+
+        def search(xs, us, k, big_k, cs):
+            return vmap(lane, in_dims=(0, 0, 0, 0, 0, 0, None))(x0_batch, xs, us, k, big_k, cs, alphas)
+
+    ks = u_init_batch.new_zeros((batch, horizon, m))
+    big_ks = u_init_batch.new_zeros((batch, horizon, m, n))
+    done = torch.zeros(batch, dtype=torch.bool, device=xs.device)
+    iters = torch.zeros(batch, dtype=torch.int32, device=xs.device)
+    # JAX carries reg per lane for the LM mu-schedule; otherwise it is the static config.reg.
+    reg = torch.full((batch,), config.reg, dtype=xs.dtype, device=xs.device) if config.adaptive_reg else config.reg
+    trip = 0
+    while trip < config.max_iter and not bool(done.all()):  # the trip's one host read
+        a, b = vmap(partial(linearize_dynamics, dynamics))(xs, us)
+        exp = vmap(partial(quadratize_cost, cost))(xs, us)
+        fexp = vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
+        k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
+        found, _, new_x, new_u, new_cost = search(xs, us, k, big_k, cs)
+
+        active = ~done
+        small = (cs - new_cost).abs() < config.tol
+        if config.adaptive_reg:
+            # LM mu-schedule per lane: shrink on success, grow and retry on failure;
+            # a lane ends only when it converges or its mu saturates.
+            reg_next = torch.where(found, torch.clamp(reg / config.reg_factor, min=config.reg),
+                                   torch.clamp(reg * config.reg_factor, max=config.reg_max))
+            now_done = (found & small) | (~found & (reg >= config.reg_max))
+            reg = torch.where(active, reg_next, reg)
+        else:
+            now_done = ~found | small
+
+        def sel(new, old):
+            return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+        xs, us, cs = sel(new_x, xs), sel(new_u, us), sel(new_cost, cs)
+        ks, big_ks = sel(k, ks), sel(big_k, big_ks)
+        done = done | now_done
+        iters = iters + active.to(iters.dtype)
+        trip += 1
+    return ILQRSolution(xs, us, cs, iters, done, ks, big_ks)

@@ -34,6 +34,8 @@ from quattro_tpu_torch.solver.rollout import (
     DEFAULT_ALPHAS,
     feedback_rollout,
     line_search,
+    line_search_batched2d,
+    line_search_batched_fused,
     line_search_fused,
     simulate,
     trajectory_cost,
@@ -66,6 +68,8 @@ __all__ = [
     "DEFAULT_ALPHAS",
     "feedback_rollout",
     "line_search",
+    "line_search_batched2d",
+    "line_search_batched_fused",
     "line_search_fused",
     "simulate",
     "trajectory_cost",

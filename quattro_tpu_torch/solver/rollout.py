@@ -3,7 +3,9 @@
 Counterpart of ``quattro_tpu/solver/rollout.py``. Every step size is rolled
 out together (``torch.func.vmap`` over alpha), then the FIRST (largest) alpha
 whose cost does not exceed the current cost is taken. ``line_search_fused``
-runs the rollouts as kernel K2 on CUDA (``ops/fused_rollout.py``).
+runs the rollouts as kernel K2 on CUDA (``ops/fused_rollout.py``);
+``line_search_batched_fused`` and ``line_search_batched2d`` run a trajectory
+batch's rollouts as one launch of the batched rollout kernel (K7 and K6).
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ from typing import Callable, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts
+from quattro_tpu_torch.ops.fused_rollout import (
+    fused_feedback_rollouts,
+    fused_feedback_rollouts_batched,
+    fused_feedback_rollouts_batched2d,
+)
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -127,6 +133,63 @@ def line_search_fused(
     cand_x, cand_u = fused_feedback_rollouts(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
     cand_cost = vmap(lambda xs, us: trajectory_cost(cost, final_cost, xs, us))(cand_x, cand_u)
     return _first_accept_select(cand_x, cand_u, cand_cost, x_ref_seq, u_ref_seq, current_cost, alphas)
+
+
+def _batched_select(cost, final_cost, cand_x, cand_u, x_ref_batch, u_ref_batch, current_cost, alphas):
+    """Candidate costs over (alpha, trajectory), then the first accept per trajectory."""
+    traj_cost = lambda xs, us: trajectory_cost(cost, final_cost, xs, us)
+    cand_cost = vmap(vmap(traj_cost))(cand_x, cand_u)  # (A, B)
+    return vmap(_first_accept_select, in_dims=(1, 1, 1, 0, 0, 0, None))(
+        cand_x, cand_u, cand_cost, x_ref_batch, u_ref_batch, current_cost, alphas
+    )
+
+
+def line_search_batched_fused(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch: torch.Tensor,  # (B, n)
+    x_ref_batch: torch.Tensor,  # (B, H+1, n)
+    u_ref_batch: torch.Tensor,  # (B, H, m)
+    k_batch: torch.Tensor,  # (B, H, m)
+    big_k_batch: torch.Tensor,  # (B, H, m, n)
+    current_cost: torch.Tensor,  # (B,)
+    alphas: torch.Tensor,  # (A,)
+) -> LineSearchResult:
+    """``line_search`` over a trajectory batch, the rollouts in one launch (K7 on CUDA).
+
+    Same accept semantics as ``vmap(line_search)`` over the batch; candidate
+    costs and the per-trajectory first-accept select stay in PyTorch. Returns
+    ``(found (B,), chosen_alpha (B,), new_x (B, H+1, n), new_u (B, H, m),
+    new_cost (B,))``. The JAX function's ``interpret`` is not carried over.
+    """
+    cand_x, cand_u = fused_feedback_rollouts_batched(
+        dynamics, x0_batch, x_ref_batch, u_ref_batch, k_batch, big_k_batch, alphas
+    )
+    return _batched_select(cost, final_cost, cand_x, cand_u, x_ref_batch, u_ref_batch, current_cost, alphas)
+
+
+def line_search_batched2d(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch: torch.Tensor,  # (B, n)
+    x_ref_batch: torch.Tensor,  # (B, H+1, n)
+    u_ref_batch: torch.Tensor,  # (B, H, m)
+    k_batch: torch.Tensor,  # (B, H, m)
+    big_k_batch: torch.Tensor,  # (B, H, m, n)
+    current_cost: torch.Tensor,  # (B,)
+    alphas: torch.Tensor,  # (A,)
+) -> LineSearchResult:
+    """``line_search_batched_fused`` through ``fused_feedback_rollouts_batched2d`` (K6 on CUDA).
+
+    Same contract. The JAX function's ``interpret`` and ``tile_s`` (a TPU
+    tile size that changes no result) are not carried over.
+    """
+    cand_x, cand_u = fused_feedback_rollouts_batched2d(
+        dynamics, x0_batch, x_ref_batch, u_ref_batch, k_batch, big_k_batch, alphas
+    )
+    return _batched_select(cost, final_cost, cand_x, cand_u, x_ref_batch, u_ref_batch, current_cost, alphas)
 
 
 def _first_accept_select(cand_x, cand_u, cand_cost, x_ref_seq, u_ref_seq, current_cost, alphas):

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from quattro_tpu_torch.control import make_quadrotor_mpc
-from quattro_tpu_torch.ops import _build, fused_riccati, fused_rollout, fused_solve
+from quattro_tpu_torch.ops import _build, fused_linquad, fused_riccati, fused_rollout, fused_solve
+from quattro_tpu_torch.parallel import batched_ilqr_solve
 from quattro_tpu_torch.solver import (
-    CostExpansion, ILQRConfig, ilqr_solve, ilqr_solve_fused, make_quadratic_cost, make_quadratic_final_cost,
-    simulate, trajectory_cost,
+    CostExpansion, ILQRConfig, ilqr_solve, ilqr_solve_fused, line_search_batched2d, line_search_batched_fused,
+    make_quadratic_cost, make_quadratic_final_cost, simulate, trajectory_cost,
 )
 from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete, quadrotor_dynamics
 
@@ -217,3 +218,205 @@ def test_megakernel_mpc_launches_k3_once_per_step(cuda_device):
     assert _build.launches[fused_solve.KERNEL] == 3
     assert _build.launches[fused_riccati.KERNEL] == 0
     assert x_plan.shape == (21, 12) and bool(torch.isfinite(x_plan).all())
+
+
+# ---------------------------------------------------------------------------
+# The batched path: K4 (batched Riccati), K5 (linearize + quadratize, packed),
+# K6/K7 (batched rollouts) and the batched solve.
+# ---------------------------------------------------------------------------
+
+
+def batched_stages(device, batch, horizon=7, seed=9, dtype=torch.float64):
+    lanes = [riccati_stages(device, seed=seed + b, horizon=horizon) for b in range(batch)]
+    a, b_mat, v_x, v_xx = (torch.stack([lane[i] for lane in lanes]).to(dtype) for i in (0, 1, 3, 4))
+    exp = CostExpansion(*(torch.stack([lane[2][i] for lane in lanes]).to(dtype) for i in range(5)))
+    return (a, b_mat), exp, v_x, v_xx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["column", "batch2d", "auto", "packed"])
+def test_k4_on_card_matches_plain(cuda_device, entry):
+    batch = 128 if entry == "packed" else 5
+    (a, b_mat), exp, v_x, v_xx = batched_stages(cuda_device, batch)
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6)
+    _build.reset_launches()
+    if entry == "column":
+        out = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6)
+    elif entry == "batch2d":
+        out = fused_riccati.riccati_backward_batched_fused2d(a, b_mat, exp, v_x, v_xx, 1e-6)
+    elif entry == "auto":
+        out = fused_riccati.riccati_backward_batched_fused_auto(a, b_mat, exp, v_x, v_xx, 1e-6)
+    else:
+        packed = fused_riccati.pack_stages((a, b_mat, exp.l_xx, exp.l_uu, exp.l_ux, exp.l_x, exp.l_u), 1, 8)
+        out = fused_riccati.riccati_backward_batched_fused2d(
+            None, None, None, v_x, v_xx, 1e-6, tile_s=1, block_t=2, packed_stage=packed, horizon=7)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: 1}
+    _close_all(ref, out)
+
+
+@pytest.mark.cuda
+def test_k4_lanes_are_k1_bit_for_bit(cuda_device):
+    """K4 runs K1's step unchanged (riccati_step.cuh), so each lane equals one K1 launch exactly."""
+    (a, b_mat), exp, v_x, v_xx = batched_stages(cuda_device, 4)
+    k, big_k = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6)
+    for lane in range(4):
+        k1 = fused_riccati.riccati_backward_fused_single(a[lane], b_mat[lane], [e[lane] for e in exp], v_x[lane],
+                                                         v_xx[lane], 1e-6)
+        assert torch.equal(k1[0], k[lane]) and torch.equal(k1[1], big_k[lane])
+
+
+@pytest.mark.cuda
+def test_k4_bf16_stream_on_card(cuda_device):
+    """bfloat16 stage inputs: equal to the plain form on the same rounded inputs, near the exact gains."""
+    (a, b_mat), exp, v_x, v_xx = batched_stages(cuda_device, 4, dtype=torch.float32)
+    out = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6, stream_dtype=torch.bfloat16)
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6, torch.bfloat16)
+    exact = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6)
+    for o, r, e in zip(out, ref, exact):
+        assert o.dtype == torch.float32
+        assert float((o - r).abs().max() / r.abs().max()) < 1e-4
+        assert 0.0 < float((o - e).abs().max() / e.abs().max()) < 5e-2
+
+
+def quad_linquad_problem(device, batch=128, horizon=7, seed=4, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    x_ref = t([0.0, 0.0, 0.5] + [0.0] * 9)
+    cost = make_quadratic_cost(t(Q), t([0.01] * 4), x_ref, barrier_alpha=1000.0)
+    xs = t(0.1 * rng.standard_normal((batch, horizon + 1, 12)))
+    us = t(2.4 + 0.1 * rng.standard_normal((batch, horizon, 4)))
+    us[0, 0, 0] = -0.2  # the barrier's other half-line
+    return make_discrete(QuadrotorField(), 0.01, "rk4"), cost, xs, us
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_on_card_matches_plain(cuda_device, dtype):
+    dyn, cost, xs, us = quad_linquad_problem(cuda_device, dtype=dtype)
+    _build.reset_launches()
+    out = fused_linquad.linquad_batched_fused(dyn, cost, xs, us, tile_s=1, block_t=2)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_linquad.KERNEL: 1}
+    ref = fused_linquad.linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=1, block_t=2)
+    bound = RTOL if dtype == torch.float64 else 1e-4
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert float((o - r).abs().max()) <= bound * max(float(r.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_k5_to_k4_chain_equals_unpacked_k4(cuda_device):
+    """K4 reads K5's packed tensors in place: the gains equal K4 on the unpacked stages exactly."""
+    dyn, cost, xs, us = quad_linquad_problem(cuda_device, horizon=6)
+    packed = fused_linquad.linquad_batched_fused(dyn, cost, xs, us, tile_s=1, block_t=4)
+    v_x = xs[:, -1].clone()
+    v_xx = torch.eye(12, dtype=xs.dtype, device=cuda_device).expand(128, 12, 12).contiguous()
+    chain = fused_riccati.riccati_backward_batched_fused2d(
+        None, None, None, v_x, v_xx, 1e-6, tile_s=1, block_t=4, packed_stage=packed, horizon=6)
+    a, b_mat, l_xx, l_uu, l_ux, l_x, l_u = (
+        fused_riccati.unpack_stage(x, 128, 6, tail, 1) for x, tail in zip(packed, fused_riccati.stage_shapes(12, 4)))
+    direct = fused_riccati.riccati_backward_batched_fused(a, b_mat, CostExpansion(l_x, l_u, l_xx, l_uu, l_ux),
+                                                          v_x, v_xx, 1e-6)
+    assert all(torch.equal(c, d) for c, d in zip(chain, direct))
+
+
+def batched_rollout_inputs(device, batch=5, seed=6, horizon=12):
+    values = [rollout_inputs(device, seed=seed + b, horizon=horizon) for b in range(batch)]
+    x0, x_ref, u_ref, k, big_k = (torch.stack([v[i] for v in values]) for i in range(5))
+    return x0, x_ref, u_ref, k, big_k, values[0][5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["batched", "batched2d"])
+def test_k6_k7_on_card_match_plain_and_k2(cuda_device, entry):
+    inputs = batched_rollout_inputs(cuda_device)
+    dyn = make_discrete(QuadrotorField(), 0.01, "rk4")
+    fn = getattr(fused_rollout, f"fused_feedback_rollouts_{entry}")
+    name = fused_rollout.BATCHED_KERNEL if entry == "batched" else fused_rollout.BATCHED2D_KERNEL
+    _build.reset_launches()
+    out = fn(dyn, *inputs)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {name: 1}
+    assert out[0].shape == (6, 5, 13, 12) and out[1].shape == (6, 5, 12, 4)
+    _close_all(fused_rollout.fused_feedback_rollouts_batched_plain(dyn, *inputs), out)
+    for lane in range(5):  # each lane runs K2's per-thread body
+        k2 = fused_rollout.fused_feedback_rollouts(dyn, *(x[lane] for x in inputs[:5]), inputs[5])
+        assert torch.equal(k2[0], out[0][:, lane]) and torch.equal(k2[1], out[1][:, lane])
+
+
+@pytest.mark.cuda
+def test_batched_kernels_refuse_unknown_plants_and_costs(cuda_device):
+    lam = make_discrete(lambda x, u: quadrotor_dynamics(x, u), 0.01, "rk4")
+    dyn, cost, xs, us = quad_linquad_problem(cuda_device)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="quadrotor"):
+        fused_linquad.linquad_batched_fused(lam, cost, xs, us, tile_s=1)
+    with pytest.raises(ValueError, match="make_quadratic_cost"):
+        fused_linquad.linquad_batched_fused(dyn, lambda x, u: cost(x, u), xs, us, tile_s=1)
+    inputs = batched_rollout_inputs(cuda_device, batch=2)
+    for fn in (fused_rollout.fused_feedback_rollouts_batched, fused_rollout.fused_feedback_rollouts_batched2d):
+        with pytest.raises(ValueError, match="quadrotor"):
+            fn(lam, *inputs)
+    assert sum(_build.launches.values()) == 0
+
+
+def batched_cartpole(device, batch=4, horizon=10):
+    rng = np.random.default_rng(2)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=device)
+    dyn = make_discrete(CartPoleField(), 0.01, "rk4")
+    cost = make_quadratic_cost(t([5.0, 0.1, 10.0, 0.1]), t([0.001]), t([0.0] * 4))
+    fcost = make_quadratic_final_cost(t([50.0, 6.0, 100.0, 0.1]), t([0.0] * 4))
+    return dyn, cost, fcost, t(0.2 * rng.standard_normal((batch, 4))), t(np.zeros((batch, horizon, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linesearch", ["xla", "fused"])
+def test_batched_solve_launches_k4_and_k7_once_per_trip(cuda_device, linesearch):
+    """One K4 launch per trip (and one K7 with linesearch="fused"); the same solve as "vmap"
+    (JAX's tolerances for its two backends: cost rtol 1e-9, u atol 1e-8)."""
+    dyn, cost, fcost, x0s, u0s = batched_cartpole(cuda_device)
+    cfg = ILQRConfig(tol=0.0, max_iter=3, linesearch=linesearch)
+    _build.reset_launches()
+    fused = batched_ilqr_solve(dyn, cost, fcost, x0s, u0s, cfg, riccati_backend="fused")
+    torch.cuda.synchronize()
+    trips = int(fused.iterations.max())
+    expected = {fused_riccati.BATCHED_KERNEL: trips}
+    if linesearch == "fused":
+        expected[fused_rollout.BATCHED_KERNEL] = trips
+    assert trips >= 1 and dict(_build.launches) == expected
+    ref = batched_ilqr_solve(dyn, cost, fcost, x0s, u0s, cfg._replace(linesearch="xla"), riccati_backend="vmap")
+    assert torch.equal(fused.iterations, ref.iterations) and torch.equal(fused.converged, ref.converged)
+    np.testing.assert_allclose(fused.cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(fused.u_seq.cpu().numpy(), ref.u_seq.cpu().numpy(), atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_vmap_backend_routes_pinned_fused_lanes_to_k4_and_k7(cuda_device):
+    """A pinned riccati="fused"/linesearch="fused" under "vmap" reaches the batched kernels, never K1 or K2."""
+    dyn, cost, fcost, x0s, u0s = batched_cartpole(cuda_device)
+    cfg = ILQRConfig(tol=0.0, max_iter=2, riccati="fused", linesearch="fused")
+    _build.reset_launches()
+    sol = batched_ilqr_solve(dyn, cost, fcost, x0s, u0s, cfg, riccati_backend="vmap")
+    torch.cuda.synchronize()
+    trips = int(sol.iterations.max())
+    assert trips >= 1
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: trips, fused_rollout.BATCHED_KERNEL: trips}
+
+
+@pytest.mark.cuda
+def test_line_search_batched2d_on_card_is_the_fused_one(cuda_device):
+    """Both batched line searches launch one kernel (counted K6 and K7) and select alike."""
+    dyn, cost, fcost, x0s, u0s = batched_cartpole(cuda_device)
+    xs = torch.stack([simulate(dyn, x, u) for x, u in zip(x0s, u0s)])
+    cs = torch.stack([trajectory_cost(cost, fcost, x, u) for x, u in zip(xs, u0s)])
+    rng = np.random.default_rng(3)
+    k = torch.as_tensor(0.5 * rng.standard_normal((4, 10, 1)), device=cuda_device)
+    big_k = torch.as_tensor(0.5 * rng.standard_normal((4, 10, 1, 4)), device=cuda_device)
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.1, 0.05, 0.01], dtype=torch.float64, device=cuda_device)
+    args = (dyn, cost, fcost, x0s, xs, u0s, k, big_k, cs, alphas)
+    _build.reset_launches()
+    got = line_search_batched2d(*args)
+    assert dict(_build.launches) == {fused_rollout.BATCHED2D_KERNEL: 1}
+    ref = line_search_batched_fused(*args)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))

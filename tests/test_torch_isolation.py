@@ -31,7 +31,9 @@ def test_the_scan_covers_the_package():
     for module in ("quattro_tpu_torch/ops/fused_riccati.py", "quattro_tpu_torch/ops/fused_rollout.py",
                    "quattro_tpu_torch/ops/fused_solve.py", "quattro_tpu_torch/systems/cartpole.py",
                    "quattro_tpu_torch/solver/lqr.py", "quattro_tpu_torch/control/switcher.py",
-                   "quattro_tpu_torch/control/mpc.py", "quattro_tpu_torch/models/gain_predictor.py", "chip_smoke.py"):
+                   "quattro_tpu_torch/control/mpc.py", "quattro_tpu_torch/models/gain_predictor.py",
+                   "quattro_tpu_torch/ops/fused_linquad.py", "quattro_tpu_torch/parallel/batch.py",
+                   "quattro_tpu_torch/parallel/__init__.py", "chip_smoke.py"):
         assert module in names
 
 
