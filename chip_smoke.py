@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. Build the six CUDA sources (K1-K7) from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
+1. Build the eight CUDA sources (K1-K9) from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
 2. K1 (fused Riccati) against its plain PyTorch form on the card, on the
    bench problem's stages (H=100, n=12, m=4), float64 and float32.
 3. K2 (fused all-alpha rollouts) against its plain form, quadrotor RK4,
@@ -54,8 +54,24 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 10. One fully fused batched trip through public entry points, K5 -> K4
    (packed) -> ``line_search_batched2d`` (K6), held to the "fused" backend's
    first trip, with the device idle share of that trip.
+11. K8 (batched SPD solve, run after phase 8) against its plain form at
+   ``benchmarks/suite.py``'s shapes (m=4, r=13, B=301, 65,536 and 1,048,576;
+   float64 at 65,536) and the main path's widest launch (102,400 systems,
+   r=25 and 13), timed beside ``torch.linalg.solve``; K9 (block-tridiagonal
+   SpMV) against its plain form at N=1,024 and 131,072 (n=12, both dtypes),
+   timed beside one ``torch.bmm`` of the stacked band.
+12. The associative Riccati form (run last): the pass in float64 on the card
+   against the CPU and against K1 (bench stages H=100, the suite's random LQ
+   problem H=1024; exactly 2 K8 launches per pass), timed in float32 at H=50,
+   100, 1024 beside K1 and the sequential form; ``ilqr_solve(riccati="assoc")``
+   on the bench problem against the CPU run; a 20-step
+   ``make_quadrotor_mpc(riccati="assoc")`` loop held to the pure loop of
+   phase 5; ``batched_ilqr_solve`` ("vmap", assoc) at B=512 and 2048 (2 K8
+   launches per trip; float64 lanes against their single solves); and the KKT
+   route (``build_lqr_kkt`` -> ``btd_solve`` -> ``recover_primal`` ->
+   ``kkt_residual``, K9) on both problems against K1's Newton step and the CPU.
 
-Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9 and 10)
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10 and 12)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -131,6 +147,23 @@ K5_TILE_S = 8  # K5's packed layout: full 8 x 128 tiles at B=2048, as on the TPU
 # cold first step of the while solver takes many iterations of tens of
 # thousands of launches each, and tracing it cost up to a minute.)
 IDLE_STEPS = 3
+# K8 alone: benchmarks/suite.py's shapes (m=4, r=13) and the widest launch of
+# the main path (the batched associative solve at B=2048, H=50: 102,400
+# systems, r = 1 + 2n for the stage elements and 1 + n for the gains).
+K8_SHAPES = ((301, 13, torch.float32), (65536, 13, torch.float32), (1048576, 13, torch.float32),
+             (65536, 13, torch.float64), (102400, 25, torch.float32), (102400, 13, torch.float32))
+K8_MAIN = (102400, 25, torch.float32)  # the shape of the kernels line
+# K9 alone: the suite's shapes (n=12) and the main path's (the KKT route, float64, N = H = 1024).
+K9_SHAPES = ((1024, torch.float32), (131072, torch.float32), (1024, torch.float64), (131072, torch.float64))
+K9_MAIN = (1024, torch.float64)
+# The associative Riccati form against K1: JAX's tolerance for the two forms,
+# which place reg differently (tests/test_riccati.py:110-113).
+ASSOC_K1_RTOL, ASSOC_K1_ATOL = 1e-3, 1e-6
+ASSOC_MPC_STEPS = 20
+# The KKT route: residual relative to the rhs scale, and dx against the
+# Riccati Newton step (tests/test_ops.py:130-154).
+KKT_RESIDUAL_REL = 1e-8
+KKT_DX_RTOL, KKT_DX_ATOL = 1e-5, 1e-8
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 without tensor
 # cores, float64 without tensor cores, HBM3 bandwidth.
@@ -144,7 +177,9 @@ K4 = "fused_riccati_batched"
 K5 = "fused_linquad"
 K6 = "fused_rollout_batched2d"  # launch count of fused_feedback_rollouts_batched2d
 K7 = "fused_rollout_batched"  # launch count of fused_feedback_rollouts_batched, and the source K6 shares
-SOURCES = (K1, K2, K3, K4, K5, K7)
+K8 = "batched_cholesky"
+K9 = "btd_matvec"
+SOURCES = (K1, K2, K3, K4, K5, K7, K8, K9)
 Q = [10.0, 10.0, 50.0, 1.0, 1.0, 1.0, 10.0, 10.0, 50.0, 1.0, 1.0, 1.0]
 QF = [100.0, 100.0, 500.0, 10.0, 10.0, 10.0, 100.0, 100.0, 500.0, 10.0, 10.0, 10.0]
 
@@ -174,11 +209,11 @@ def time_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def bench_problem(dtype, horizon=100):
+def bench_problem(dtype, horizon=100, device="cuda"):
     from quattro_tpu_torch.solver import make_quadratic_cost, make_quadratic_final_cost
     from quattro_tpu_torch.systems import QuadrotorField, make_discrete
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     x_ref = torch.zeros(12, dtype=dtype, device=dev)
     x_ref[2] = 0.5
     q = torch.tensor(Q, dtype=dtype, device=dev)
@@ -205,13 +240,13 @@ def cartpole_problem(dtype, horizon=30):
 
 
 @functools.lru_cache(maxsize=None)
-def bench_stages(dtype):
+def bench_stages(dtype, horizon=100):
     """Stage data of the bench problem's first backward pass, and gains from it."""
     from quattro_tpu_torch.solver import (
         linearize_dynamics, quadratize_cost, quadratize_final_cost, riccati_backward, simulate,
     )
 
-    dyn, cost, fcost, x0, u0 = bench_problem(dtype)
+    dyn, cost, fcost, x0, u0 = bench_problem(dtype, horizon)
     x_seq = simulate(dyn, x0, u0)
     a, b = linearize_dynamics(dyn, x_seq, u0)
     exp = quadratize_cost(cost, x_seq, u0)
@@ -624,6 +659,283 @@ def phase_k67(report):
                     )
 
 
+def k8_work(batch, m, r, dtype):
+    """(bytes, flops) of a batched SPD solve: a and b read once, x written once."""
+    size = torch.finfo(dtype).bits // 8
+    factor = sum(2 * j + (m - j - 1) * (2 * j + 1) + 2 for j in range(m))  # Cholesky-Crout with sqrt and 1/L_jj
+    solve = 2 * r * m * m  # forward and back substitution per right-hand side
+    return batch * (m * m + 2 * m * r) * size, batch * (factor + solve)
+
+
+def spd_batch(batch, m, r, dtype, seed=0):
+    """Random SPD systems made on the card from a seeded generator: a = w w' + 2 I, b normal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(batch, m, m, generator=gen, device="cuda", dtype=dtype)
+    a = w @ w.transpose(-1, -2) + 2.0 * torch.eye(m, dtype=dtype, device="cuda")
+    return a, torch.randn(batch, m, r, generator=gen, device="cuda", dtype=dtype)
+
+
+def phase_k8(report):
+    """K8 against its plain form at the suite's and the main path's shapes; timed beside torch.linalg.solve."""
+    from quattro_tpu_torch.ops.smallchol import batched_cholesky_solve_fused, batched_cholesky_solve_plain
+
+    for batch, r, dtype in K8_SHAPES:
+        a, b = spd_batch(batch, 4, r, dtype)
+        out = batched_cholesky_solve_fused(a, b)
+        ref = batched_cholesky_solve_plain(a, b)
+        torch.cuda.synchronize()
+        bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+        check(f"K8 B={batch} m=4 r={r} {dtype}", rel_errs(("x",), (out,), (ref,)), bound)
+        if batch < 65536:
+            continue
+        ms = time_ms(lambda: batched_cholesky_solve_fused(a, b), 20)
+        plain_ms = time_ms(lambda: batched_cholesky_solve_plain(a, b), 3)
+        library_ms = time_ms(lambda: torch.linalg.solve(a, b), 3)
+        b_ms, b_by = bound_ms(k8_work(batch, 4, r, dtype), dtype)
+        log(f"K8 B={batch} m=4 r={r} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.linalg.solve "
+            f"{library_ms:.3f} ms, bound {b_ms:.2e} ms ({b_by}), {batch / ms * 1e3:.3e} systems/s")
+        if (batch, r, dtype) == K8_MAIN:
+            report[K8] = dict(
+                name=K8, route="cuda", source="quattro_tpu_torch/csrc/batched_cholesky.cu",
+                replaces="quattro_tpu/ops/smallchol.py:101", launches=0,
+                max_abs_err=float((out - ref).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            )
+
+
+def k9_work(num_blocks, n, dtype):
+    """(bytes, flops) of the block-tridiagonal SpMV: the N diagonal and N - 1 lower blocks and x read
+    once, y written once; each lower block is used twice (L and L^T), so 3N - 2 block products."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = ((2 * num_blocks - 1) * n * n + 2 * num_blocks * n) * size
+    return nbytes, 2 * (3 * num_blocks - 2) * n * n
+
+
+def phase_k9(report):
+    """K9 against its plain form at the suite's and the main path's shapes; timed beside one stacked-band bmm."""
+    from quattro_tpu_torch.ops.blocktridiag import BlockTridiagonal, btd_matvec_fused, btd_matvec_plain
+
+    n = 12
+    for num_blocks, dtype in K9_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(num_blocks)
+        mat = BlockTridiagonal(torch.randn(num_blocks, n, n, generator=gen, device="cuda", dtype=dtype),
+                               torch.randn(num_blocks - 1, n, n, generator=gen, device="cuda", dtype=dtype))
+        x = torch.randn(num_blocks, n, generator=gen, device="cuda", dtype=dtype)
+        out = btd_matvec_fused(mat, x)
+        ref = btd_matvec_plain(mat, x)
+        torch.cuda.synchronize()
+        bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+        check(f"K9 N={num_blocks} n={n} {dtype}", rel_errs(("y",), (out,), (ref,)), bound)
+        ms = time_ms(lambda: btd_matvec_fused(mat, x), 50)
+        plain_ms = time_ms(lambda: btd_matvec_plain(mat, x), 10)
+        # The library yardstick: the contraction of the TPU kernel's body, one torch.bmm of the band
+        # stacked as [L_{t-1} | D_t | L_t^T] (N, n, 3n) against [x_{t-1}; x_t; x_{t+1}] (N, 3n, 1).
+        # The stacking is done once, outside the timed call.
+        zero_b, zero_v = mat.diag.new_zeros((1, n, n)), x.new_zeros((1, n))
+        band = torch.cat([torch.cat([zero_b, mat.lower]), mat.diag,
+                          torch.cat([mat.lower.transpose(-1, -2), zero_b])], dim=-1).contiguous()
+        x_sta = torch.cat([torch.cat([zero_v, x[:-1]]), x, torch.cat([x[1:], zero_v])], dim=-1)[..., None].contiguous()
+        lib_err = float((torch.bmm(band, x_sta)[..., 0] - ref).abs().max() / ref.abs().max())
+        library_ms = time_ms(lambda: torch.bmm(band, x_sta), 50)
+        b_ms, b_by = bound_ms(k9_work(num_blocks, n, dtype), dtype)
+        nnz_per_s = mat.block_nnz / (ms * 1e-3)
+        log(f"K9 N={num_blocks} n={n} {dtype}: kernel {ms:.4f} ms ({nnz_per_s:.3e} block-nnz/s), plain "
+            f"{plain_ms:.4f} ms, stacked-band bmm {library_ms:.4f} ms (rel err {lib_err:.1e}; stacking not timed), "
+            f"bound {b_ms:.2e} ms ({b_by})")
+        if (num_blocks, dtype) == K9_MAIN:
+            report[K9] = dict(
+                name=K9, route="cuda", source="quattro_tpu_torch/csrc/btd_matvec.cu",
+                replaces="quattro_tpu/ops/blocktridiag.py:80", launches=0,
+                max_abs_err=float((out - ref).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            )
+
+
+def random_lq(horizon, dtype, seed=0, n=12, m=4):
+    """benchmarks/suite.py's ``random_lq_problem`` for one trajectory (``latency_scale``), from a numpy seed."""
+    from quattro_tpu_torch.solver import CostExpansion
+
+    rng = np.random.default_rng(seed)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device="cuda")
+    a = np.eye(n) + 0.01 * rng.standard_normal((horizon, n, n))
+    b = 0.05 * rng.standard_normal((horizon, n, m))
+    w = rng.standard_normal((horizon, n, n))
+    exp = CostExpansion(
+        l_x=t(rng.standard_normal((horizon, n))), l_u=t(rng.standard_normal((horizon, m))),
+        l_xx=t(0.1 * w @ np.swapaxes(w, -1, -2) + 0.1 * np.eye(n)),
+        l_uu=t(np.broadcast_to(np.eye(m), (horizon, m, m)).copy()),
+        l_ux=t(0.01 * rng.standard_normal((horizon, m, n))),
+    )
+    v_x = rng.standard_normal(n)
+    wf = rng.standard_normal((n, n))
+    return t(a), t(b), exp, t(v_x), t(wf @ wf.T + np.eye(n))
+
+
+def to_cpu(stages):
+    from quattro_tpu_torch.solver import CostExpansion
+
+    a, b, exp, v_x, v_xx = stages
+    return a.cpu(), b.cpu(), CostExpansion(*(e.cpu() for e in exp)), v_x.cpu(), v_xx.cpu()
+
+
+def within(out, ref, rtol, atol):
+    return bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def kkt_route(stages, reg):
+    """build_lqr_kkt -> btd_solve -> recover_primal -> kkt_residual."""
+    from quattro_tpu_torch.ops.blocktridiag import btd_solve, build_lqr_kkt, kkt_residual, recover_primal
+
+    system = build_lqr_kkt(*stages, reg=reg)
+    lam = btd_solve(system.matrix, system.rhs)
+    return system, lam, recover_primal(system, lam), kkt_residual(system.matrix, lam, system.rhs)
+
+
+def newton_step(stages, reg):
+    """K1's gains rolled through the linearized dynamics: dx_1..dx_H of the Riccati Newton step."""
+    from quattro_tpu_torch.solver import riccati_backward_fused
+
+    a, b, exp, v_x, v_xx = stages
+    res = riccati_backward_fused(a, b, exp, v_x, v_xx, reg)
+    dx, out = a.new_zeros(a.shape[-1]), []
+    for t in range(a.shape[0]):
+        dx = a[t] @ dx + b[t] @ (res.k_seq[t] + res.big_k_seq[t] @ dx)
+        out.append(dx)
+    return torch.stack(out)
+
+
+def phase_assoc(report, pure_xs):
+    """The associative Riccati form (two K8 launches per pass) and the KKT route (K9) through public entry points."""
+    from quattro_tpu_torch.control import make_quadrotor_mpc
+    from quattro_tpu_torch.parallel import batched_ilqr_solve
+    from quattro_tpu_torch.solver import (
+        ILQRConfig, ilqr_solve, linearize_dynamics, quadratize_cost, quadratize_final_cost, riccati_backward,
+        riccati_backward_associative, riccati_backward_fused,
+    )
+    from quattro_tpu_torch.systems import QuadrotorField, make_discrete
+
+    results = {}
+    # The pass in float64: the card against the same call on the CPU (K8's plain form there), and
+    # against K1 at JAX's tolerance for the two forms.
+    problems = {"bench H=100": lambda dt: bench_stages(dt)[1], "random LQ H=1024": lambda dt: random_lq(1024, dt)}
+    for label, make in problems.items():
+        stages = make(torch.float64)
+        out, counts = counted((K8,), report, lambda: riccati_backward_associative(*stages, 1e-6))
+        ref = riccati_backward_associative(*to_cpu(stages), 1e-6)
+        check(f"assoc pass {label} float64, card against CPU", rel_errs(("k", "K", "V_x", "V_xx"),
+                                                                       [o.cpu() for o in out], ref), F64_KERNEL_REL)
+        k1 = riccati_backward_fused(*stages, 1e-6)
+        near = within(out.k_seq, k1.k_seq, ASSOC_K1_RTOL, ASSOC_K1_ATOL) and within(
+            out.big_k_seq, k1.big_k_seq, ASSOC_K1_RTOL, ASSOC_K1_ATOL)
+        log(f"assoc pass {label} float64: launches {counts}; gains within rtol {ASSOC_K1_RTOL}, atol {ASSOC_K1_ATOL} "
+            f"of K1: {near} (max |dk| {float((out.k_seq - k1.k_seq).abs().max()):.2e})")
+        if counts != {K8: 2} or not near:
+            raise AssertionError(f"assoc pass {label}: launches {counts}, gains near K1 {near}")
+
+    # Timing in float32: the pass beside K1 and the sequential form (the data behind riccati_backward_auto).
+    timing = {}
+    for label, stages in (("H=50", bench_stages(torch.float32, 50)[1]), ("H=100", bench_stages(torch.float32)[1]),
+                          ("H=1024", random_lq(1024, torch.float32))):
+        horizon = stages[0].shape[0]
+        assoc_ms = time_ms(lambda: riccati_backward_associative(*stages, 1e-6), 3)
+        k1_ms = time_ms(lambda: riccati_backward_fused(*stages, 1e-6), 20)
+        seq_ms = time_ms(lambda: riccati_backward(*stages, 1e-6), 1)
+        nnz = 3 * horizon - 2  # block-nnz of the trajectory's dual-Schur KKT matrix
+        timing[label] = dict(assoc_ms=assoc_ms, k1_ms=k1_ms, seq_ms=seq_ms, assoc_block_nnz_per_s=nnz / assoc_ms * 1e3)
+        log(f"assoc pass float32 {label}: associative {assoc_ms:.3f} ms ({nnz / assoc_ms * 1e3:.3e} block-nnz/s), "
+            f"K1 {k1_ms:.4f} ms, sequential {seq_ms:.2f} ms")
+    results["pass_float32"] = timing
+
+    # A solve through it: the bench problem, float64, card against CPU.
+    dyn, cost, fcost, x0, u0 = bench_problem(torch.float64)
+    cfg = ILQRConfig(tol=0.0, max_iter=6, riccati="assoc", linesearch="fused")
+    sol, counts = counted((K8, K2), report, lambda: ilqr_solve(dyn, cost, fcost, x0, u0, cfg))
+    ref = ilqr_solve(*bench_problem(torch.float64, device="cpu"), cfg)
+    cost_rel = abs(float(sol.cost) - float(ref.cost)) / abs(float(ref.cost))
+    log(f"assoc solve (bench problem, float64, 6 forced iterations): iterations {sol.iterations} (CPU {ref.iterations}), "
+        f"converged {sol.converged} (CPU {ref.converged}), cost {float(sol.cost):.10f} rel {cost_rel:.2e} against the "
+        f"CPU run, launches {counts}")
+    if (sol.iterations, sol.converged) != (ref.iterations, ref.converged) or not cost_rel <= F64_BATCH_COST_RTOL \
+            or counts.get(K8) != 2 * sol.iterations:
+        raise AssertionError("assoc solve on the card disagrees with the CPU run")
+    results["solve_cost_rel"] = cost_rel
+
+    # The MPC loop with riccati="assoc", held to the K1 pure loop's state at the same step.
+    plant = make_discrete(QuadrotorField(), 0.01, "rk4")
+    ctrl = make_quadrotor_mpc(horizon=50, riccati="assoc")
+    loop, counts = counted((K8, K2), report, lambda: closed_loop(
+        ctrl.step, ctrl.init_state(), plant, quadrotor_start(torch.device("cuda")), ASSOC_MPC_STEPS))
+    track = float((loop.x - pure_xs[ASSOC_MPC_STEPS - 1]).abs().max())
+    median_ms, p99_ms = latency(loop.lat)
+    log(f"MPC assoc: {ASSOC_MPC_STEPS} steps, max |x - x(K1 pure loop)| {track:.3e} (bar {HYBRID_TRACK_BAR}), step "
+        f"latency median {median_ms:.2f} ms p99 {p99_ms:.2f} ms, launches {counts}")
+    if not (track < HYBRID_TRACK_BAR and torch.isfinite(loop.x_plan).all() and counts.get(K1, 0) == 0):
+        raise AssertionError(f"MPC assoc left the K1 pure loop: {track}, launches {counts}")
+    results["mpc"] = dict(track=track, median_ms=median_ms, p99_ms=p99_ms)
+
+    # The batched solve, "vmap" backend with the associative form batched: two K8 launches per trip.
+    assoc_cfg = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS, riccati="assoc")
+    for dtype, batch in [(torch.float32, width) for width in BATCHES] + [(torch.float64, BATCHES[0])]:
+        problem = suite_batch(dtype, batch)
+        solve = functools.partial(batched_ilqr_solve, *problem, assoc_cfg, riccati_backend="vmap")
+        sol, counts = counted((K8,), report, solve)
+        trips = int(sol.iterations.max())
+        if trips != BATCH_ITERS or counts != {K8: 2 * trips} or not torch.isfinite(sol.cost).all():
+            raise AssertionError(f"batched assoc solve B={batch} {dtype}: {trips} trips, launches {counts}")
+        if dtype == torch.float32:
+            start = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            results[f"batched_B{batch}"] = dict(seconds=seconds, solves_per_s=batch / seconds)
+            log(f"batched assoc solve B={batch} float32: {seconds:.3f} s, {batch / seconds:.1f} solves/s, "
+                f"launches {counts} ({batch * BATCH_H} systems per K8 launch)")
+            continue
+        dyn, cost, fcost, x0, u0 = problem
+        worst = dict(cost=0.0, u=0.0)
+        for lane in (0, batch // 2, batch - 1):
+            one = ilqr_solve(dyn, cost, fcost, x0[lane], u0[lane], assoc_cfg)
+            same = (one.iterations == int(sol.iterations[lane]) and one.converged == bool(sol.converged[lane]))
+            worst["cost"] = max(worst["cost"], abs(float(one.cost) - float(sol.cost[lane])) / abs(float(one.cost)))
+            worst["u"] = max(worst["u"], float((one.u_seq - sol.u_seq[lane]).abs().max()))
+            if not same:
+                raise AssertionError(f"batched assoc lane {lane}: iterations/flags differ from its single solve")
+        log(f"batched assoc solve B={batch} float64: lanes 0, {batch // 2}, {batch - 1} against ilqr_solve of that lane: "
+            f"equal iterations and flags, cost rel {worst['cost']:.2e} (bound {F64_BATCH_COST_RTOL}), max |du| "
+            f"{worst['u']:.2e} (bound {F64_BATCH_U_ATOL})")
+        if not (worst["cost"] <= F64_BATCH_COST_RTOL and worst["u"] <= F64_BATCH_U_ATOL):
+            raise AssertionError(f"batched assoc solve: lanes differ from their single solves: {worst}")
+        results["batched_lanes_f64"] = worst
+
+    # The KKT route, float64: the bench problem's LQ subproblem about its K1/K2 solve, and the random LQ problem.
+    dyn, cost, fcost, x0, u0 = bench_problem(torch.float64)
+    sol = ilqr_solve(dyn, cost, fcost, x0, u0, ILQRConfig(tol=0.0, max_iter=6, riccati="fused", linesearch="fused"))
+    a, b = linearize_dynamics(dyn, sol.x_seq, sol.u_seq)
+    fin = quadratize_final_cost(fcost, sol.x_seq[-1])
+    subproblems = {"bench H=100": (a, b, quadratize_cost(cost, sol.x_seq, sol.u_seq), fin.v_x, fin.v_xx),
+                   "random LQ H=1024": random_lq(1024, torch.float64)}
+    for label, stages in subproblems.items():
+        start = time.perf_counter()
+        (system, lam, dx, res), counts = counted((K9,), report, lambda: kkt_route(stages, 1e-9))
+        route_s = time.perf_counter() - start
+        scale = float(system.rhs.abs().max())
+        dx_newton = newton_step(stages, 1e-9)
+        cpu = kkt_route(to_cpu(stages), 1e-9)
+        card_cpu = rel_errs(("lam", "dx"), (lam.cpu(), dx.cpu()), cpu[1:3])
+        res_rel = float(res.max()) / scale
+        matches = within(dx, dx_newton, KKT_DX_RTOL, KKT_DX_ATOL)
+        nnz = system.matrix.block_nnz
+        log(f"KKT route {label} float64: {nnz} block-nnz, residual {res_rel:.2e} of the rhs scale (bound "
+            f"{KKT_RESIDUAL_REL}); dx equals the Riccati Newton step from K1 (rtol {KKT_DX_RTOL}, atol {KKT_DX_ATOL}): "
+            f"{matches} (max |d dx| {float((dx - dx_newton).abs().max()):.2e}); card against CPU {card_cpu} "
+            f"(bound {F64_KERNEL_REL}); launches {counts}; {route_s:.2f} s for the route")
+        check(f"KKT route {label}, card against CPU", card_cpu, F64_KERNEL_REL)
+        if not (res_rel < KKT_RESIDUAL_REL and matches and counts.get(K9, 0) >= 1):
+            raise AssertionError(f"KKT route {label}: residual {res_rel}, Newton step {matches}, launches {counts}")
+        results[f"kkt_{label}"] = dict(residual_rel=res_rel, seconds=route_s, block_nnz=nnz)
+    return results
+
+
 def counted(kernels, report, fn):
     """Run one main-path run with the counters zeroed; fail if a kernel of it did not launch."""
     from quattro_tpu_torch.ops import _build
@@ -1001,7 +1313,7 @@ def phase_mpc(report, root):
             if not track < HYBRID_TRACK_BAR:
                 raise AssertionError(f"MPC hybrid left the pure closed loop: {track} >= {HYBRID_TRACK_BAR}")
             results[mode]["track"] = track
-    return results
+    return results, pure_xs
 
 
 def main() -> int:
@@ -1036,15 +1348,18 @@ def main() -> int:
     phase_k4(report)
     phase_k5(report)
     phase_k67(report)
+    phase_k8(report)
+    phase_k9(report)
     batched = phase_batch(report)
     batched["trip"] = phase_batch_trip(report)
     rates = phase_bench(report)
-    mpc = phase_mpc(report, root)
+    mpc, pure_xs = phase_mpc(report, root)
     mega = phase_megakernel(report)
+    assoc = phase_assoc(report, pure_xs)
     log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc, "mpc_megakernel": mega,
-                                "batched": batched}}))
+                                "batched": batched, "assoc": assoc}}))
     print(smi)
-    print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7)]}))
+    print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

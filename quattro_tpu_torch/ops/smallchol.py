@@ -1,16 +1,33 @@
-"""Batched Cholesky factorize-and-solve for tiny SPD systems (pure forms).
+"""Batched Cholesky factorize-and-solve for tiny SPD systems (kernel K8).
 
-Counterpart of the pure-jnp half of ``quattro_tpu/ops/smallchol.py``: the
-Cholesky-Crout factorization and both triangular solves unrolled over the
-small matrix dimension m, batched over leading dimensions. The batched
-kernel of that module (``batched_cholesky_solve_pallas``) is not ported yet.
+Counterpart of ``quattro_tpu/ops/smallchol.py``:
+
+- the pure forms: the Cholesky-Crout factorization and both triangular
+  solves unrolled over the small matrix dimension m, batched over leading
+  dimensions (``batched_cholesky_solve``, ``batched_spd_solve``);
+- ``batched_cholesky_solve_fused``, the counterpart of the TPU kernel
+  ``batched_cholesky_solve_pallas``: on CUDA tensors one launch of
+  ``csrc/batched_cholesky.cu`` (K8) solves every system of the batch; on CPU
+  tensors its plain form ``batched_cholesky_solve_plain`` runs.
+
+``batched_spd_solve`` stays the plain unrolled form, as JAX's is: it is
+called under ``torch.func.vmap`` (the sequential Riccati law of the batched
+solve's ``"vmap"`` backend), where a kernel launched through ctypes cannot
+run. The associative Riccati form calls K8 by name on whole (..., H) batches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
+
+from quattro_tpu_torch.ops import _build
+
+KERNEL = "batched_cholesky"
+SMALL_DIM_MAX = 8  # batched_spd_solve's small_dim_max, and K8's largest m
+_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 def _unrolled_cholesky(a: torch.Tensor) -> torch.Tensor:
@@ -64,8 +81,56 @@ def batched_cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tens
     return _back_substitute(l, _forward_substitute(l, b)), l
 
 
-def batched_spd_solve(a: torch.Tensor, b: torch.Tensor, small_dim_max: int = 8) -> torch.Tensor:
+def batched_spd_solve(a: torch.Tensor, b: torch.Tensor, small_dim_max: int = SMALL_DIM_MAX) -> torch.Tensor:
     """SPD solve: unrolled Cholesky for m <= small_dim_max, LU otherwise."""
     if a.shape[-1] <= small_dim_max:
         return batched_cholesky_solve(a, b)[0]
     return torch.linalg.solve(a, b)
+
+
+def batched_cholesky_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form of K8: the unrolled Cholesky-Crout solve, ``x (B, m, r)``."""
+    return batched_cholesky_solve(a, b)[0]
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dim() != 3 or b.dim() != 3 or a.shape[1] != a.shape[2] or b.shape[:2] != a.shape[:2]:
+        raise ValueError(f"{KERNEL}: expected a (B, m, m) and b (B, m, r), got {tuple(a.shape)} and {tuple(b.shape)}")
+    batch, m, _ = a.shape
+    r = b.shape[-1]
+    if not 1 <= m <= SMALL_DIM_MAX:
+        raise ValueError(f"{KERNEL} takes 1 <= m <= {SMALL_DIM_MAX}, got m={m} (larger systems: torch.linalg.solve)")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise ValueError(f"{KERNEL} takes float32 or float64 a and b of one dtype, got {a.dtype} and {b.dtype}")
+    if b.device != a.device:
+        raise ValueError(f"{KERNEL}: a on {a.device}, b on {b.device}")
+    a, b = a.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    if batch == 0 or r == 0:
+        return x
+    lib = _build.library(KERNEL)
+    fn = lib.qt_batched_cholesky
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(_DTYPES[a.dtype], batch, m, r, a.data_ptr(), b.data_ptr(), x.data_ptr(), stream)
+    _build.check(status, KERNEL)
+    _build.launches[KERNEL] += 1
+    return x
+
+
+def batched_cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve a batch of tiny SPD systems: a (B, m, m), b (B, m, r) -> x (B, m, r), any B.
+
+    Counterpart of ``quattro_tpu/ops/smallchol.py::batched_cholesky_solve_pallas``.
+    CUDA tensors launch K8 once (float32 or float64, 1 <= m <= 8; anything
+    else raises ``ValueError``); CPU tensors take the plain form. The TPU
+    kernel's identity padding and SoA transposes have no counterpart: the
+    kernel reads the natural layout and bounds-checks the batch.
+    """
+    if a.is_cuda:
+        return _launch(a, b)
+    if a.device.type == "cpu":
+        return batched_cholesky_solve_plain(a, b)
+    raise ValueError(f"{KERNEL}: unsupported device {a.device}")

@@ -10,7 +10,8 @@ their carry frozen, per-lane iteration counts, and one host read of
   (kernel K4, ``ops/fused_riccati.py``), the stage inputs streamed in
   bfloat16 for ``"fused_bf16"``;
 - ``"vmap"``: the solver's own backward pass (``ILQRConfig.riccati``) under
-  ``torch.func.vmap``, with a per-lane ``reg`` for ``adaptive_reg``.
+  ``torch.func.vmap``, with a per-lane ``reg`` for ``adaptive_reg``; the
+  associative form runs batched instead (two K8 launches per trip).
 
 The derivatives run under ``torch.func.vmap``; the line search is
 ``vmap(line_search)`` or, with ``linesearch="fused"``, one batched rollout
@@ -31,6 +32,7 @@ from torch.func import vmap
 from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
 from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRSolution, _backward
+from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward_associative
 from quattro_tpu_torch.solver.rollout import line_search, line_search_batched_fused, simulate, trajectory_cost
 
 BACKENDS = ("auto", "fused", "fused_bf16", "vmap")
@@ -91,7 +93,15 @@ def batched_ilqr_solve(
     ``"vmap"``, lanes that would reach K1 (``riccati="fused"``, or ``"auto"``
     on the card for a batch of one) and lanes with ``linesearch="fused"``
     take K4 and K7, which run K1's and K2's per-lane law: K1 and K2 launch
-    through ctypes and cannot run under ``torch.func.vmap``.
+    through ctypes and cannot run under ``torch.func.vmap``. For the same
+    reason a pinned ``riccati="assoc"`` (or ``parallel_riccati=True``, or
+    ``"auto"`` on the CPU for a batch of one at H >= 16) runs the associative
+    form batched over the (B, H) stage tensors, not under ``vmap``: two K8
+    launches per trip on CUDA, each over all B * H systems, with the per-lane
+    ``reg`` (B,) of ``adaptive_reg`` broadcast into ``l_uu + reg I``. Every
+    operation of that form acts on each lane alone, so the result equals
+    ``vmap`` of the per-lane form (up to the summation order of batched
+    matrix products).
 
     Returns an ``ILQRSolution`` with a leading batch axis; ``iterations``
     (int32) and ``converged`` (bool) are (B,) tensors.
@@ -153,13 +163,23 @@ def _batched_ilqr_solve_fused(
 
 
 def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
-    """The ``"vmap"`` backend's backward pass over the batch: ``(a, b, exp, v_x, v_xx, reg) -> (k, K)``."""
-    n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
-    pinned_fused = config.parallel_riccati is None and config.riccati == "fused"
-    auto_single_on_card = (config.parallel_riccati is None and config.riccati == "auto" and x0_batch.is_cuda
-                           and config.batch_hint == 1 and n <= MAX_N and m <= MAX_M)
-    if pinned_fused or auto_single_on_card:
-        if config.adaptive_reg and pinned_fused:
+    """The ``"vmap"`` backend's backward pass over the batch: ``(a, b, exp, v_x, v_xx, reg) -> (k, K)``.
+
+    The form is the per-lane solver's (``ILQRConfig.riccati``, ``"auto"``
+    resolved as ``riccati_backward_auto`` resolves it for one lane). Lanes
+    that would reach K1 take K4; the associative form runs batched, on the
+    (B, H, ...) stage tensors directly; the sequential form runs under
+    ``torch.func.vmap``.
+    """
+    n, (horizon, m) = x0_batch.shape[-1], u_init_batch.shape[1:]
+    if config.parallel_riccati is not None:  # legacy boolean override
+        form = "assoc" if config.parallel_riccati else "seq"
+    elif config.riccati == "auto":
+        form = auto_form(horizon, n, m, x0_batch.is_cuda, config.batch_hint)
+    else:
+        form = config.riccati
+    if form == "fused":
+        if config.adaptive_reg and config.riccati == "fused":
             raise ValueError(
                 "riccati='fused' runs every trip with the one reg it is given; the adaptive "
                 "LM mu-schedule needs riccati='seq'|'auto'"
@@ -169,6 +189,13 @@ def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
             return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg)
 
         return fused
+    if form == "assoc":
+
+        def assoc(a, b, exp, v_x, v_xx, reg):
+            res = riccati_backward_associative(a, b, exp, v_x, v_xx, reg, config.chol_solve)
+            return res.k_seq, res.big_k_seq
+
+        return assoc
     # reg is a (B,) tensor under adaptive_reg (see _masked_solve), else the static float.
     per_lane = vmap(partial(_backward(config), use_chol=config.chol_solve),
                     in_dims=(0, 0, 0, 0, 0, 0 if config.adaptive_reg else None))

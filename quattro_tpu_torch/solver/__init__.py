@@ -27,8 +27,10 @@ from quattro_tpu_torch.solver.lqr import lqr_gain, solve_dare
 from quattro_tpu_torch.solver.riccati import (
     RiccatiResult,
     riccati_backward,
+    riccati_backward_associative,
     riccati_backward_auto,
     riccati_backward_fused,
+    riccati_backward_segment,
 )
 from quattro_tpu_torch.solver.rollout import (
     DEFAULT_ALPHAS,
@@ -63,6 +65,8 @@ __all__ = [
     "solve_dare",
     "RiccatiResult",
     "riccati_backward",
+    "riccati_backward_segment",
+    "riccati_backward_associative",
     "riccati_backward_auto",
     "riccati_backward_fused",
     "DEFAULT_ALPHAS",

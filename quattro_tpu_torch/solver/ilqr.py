@@ -46,11 +46,13 @@ GainPredictFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 class ILQRConfig(NamedTuple):
     """Solver configuration; same fields and defaults as the JAX package.
 
-    ``riccati``: ``"auto"`` (K1 for a single trajectory on CUDA, the
-    sequential form otherwise -- ``riccati_backward_auto``), ``"seq"``,
-    ``"fused"`` (K1 on CUDA, its plain form on the CPU) or ``"assoc"`` (not
-    ported yet; raises at solve time). ``linesearch``: ``"xla"`` (the
-    all-alpha rollout in PyTorch ops) or ``"fused"`` (K2 on CUDA).
+    ``riccati``: ``"auto"`` (``riccati_backward_auto``: K1 for a single
+    trajectory on CUDA; on the CPU JAX's rule, the associative form for a
+    single trajectory at H >= 16 and the sequential form otherwise),
+    ``"seq"``, ``"fused"`` (K1 on CUDA, its plain form on the CPU) or
+    ``"assoc"`` (the associative scan, two K8 launches per pass on CUDA; the
+    legacy ``parallel_riccati=True`` selects it too). ``linesearch``:
+    ``"xla"`` (the all-alpha rollout in PyTorch ops) or ``"fused"`` (K2 on CUDA).
     ``linesearch_unroll`` is accepted for parity and changes nothing;
     ``linesearch_fuse_cost`` sums the running cost inside the rollout.
     """

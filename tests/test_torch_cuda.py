@@ -15,10 +15,10 @@ import pytest
 import torch
 
 from quattro_tpu_torch.control import make_quadrotor_mpc
-from quattro_tpu_torch.ops import _build, fused_linquad, fused_riccati, fused_rollout, fused_solve
+from quattro_tpu_torch.ops import _build, blocktridiag, fused_linquad, fused_riccati, fused_rollout, fused_solve, smallchol
 from quattro_tpu_torch.parallel import batched_ilqr_solve
 from quattro_tpu_torch.solver import (
-    CostExpansion, ILQRConfig, ilqr_solve, ilqr_solve_fused, line_search_batched2d, line_search_batched_fused,
+    CostExpansion, ILQRConfig, ilqr_solve, riccati_backward_associative, ilqr_solve_fused, line_search_batched2d, line_search_batched_fused,
     make_quadratic_cost, make_quadratic_final_cost, simulate, trajectory_cost,
 )
 from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete, quadrotor_dynamics
@@ -420,3 +420,84 @@ def test_line_search_batched2d_on_card_is_the_fused_one(cuda_device):
     assert dict(_build.launches) == {fused_rollout.BATCHED2D_KERNEL: 1}
     ref = line_search_batched_fused(*args)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+# ---------------------------------------------------------------------------
+# The associative Riccati form and the KKT route: K8 (batched SPD solve) and
+# K9 (block-tridiagonal SpMV).
+# ---------------------------------------------------------------------------
+
+
+def spd_systems(device, batch, m, r, dtype, seed=12):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((batch, m, m))
+    a = w @ np.swapaxes(w, -1, -2) + 2.0 * np.eye(m)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    return t(a), t(rng.standard_normal((batch, m, r)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("batch, m, r", [(301, 4, 13), (1, 1, 2), (1000, 8, 5)])
+def test_k8_on_card_matches_plain(cuda_device, batch, m, r, dtype):
+    a, b = spd_systems(cuda_device, batch, m, r, dtype)
+    _build.reset_launches()
+    out = smallchol.batched_cholesky_solve_fused(a, b)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {smallchol.KERNEL: 1}
+    ref = smallchol.batched_cholesky_solve_plain(a, b)
+    bound = RTOL if dtype == torch.float64 else 1e-4
+    assert out.shape == (batch, m, r)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_k8_on_card_refuses_m9_and_other_dtypes(cuda_device):
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="m <= 8"):
+        smallchol.batched_cholesky_solve_fused(*spd_systems(cuda_device, 4, 9, 2, torch.float64))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        smallchol.batched_cholesky_solve_fused(*spd_systems(cuda_device, 4, 3, 2, torch.float16))
+    assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("num_blocks, n", [(1, 12), (7, 12), (1000, 5)])
+def test_k9_on_card_matches_plain(cuda_device, num_blocks, n, dtype):
+    rng = np.random.default_rng(num_blocks)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=cuda_device)
+    mat = blocktridiag.BlockTridiagonal(t(rng.standard_normal((num_blocks, n, n))),
+                                        t(rng.standard_normal((num_blocks - 1, n, n))))
+    x = t(rng.standard_normal((num_blocks, n)))
+    _build.reset_launches()
+    out = blocktridiag.btd_matvec(mat, x)
+    res = blocktridiag.kkt_residual(mat, x, out)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {blocktridiag.KERNEL: 2}
+    ref = blocktridiag.btd_matvec_plain(mat, x)
+    bound = RTOL if dtype == torch.float64 else 1e-4
+    assert float((out - ref).abs().max() / ref.abs().max()) <= bound
+    assert float(res.max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["single", "batched"])
+def test_associative_pass_on_card_matches_cpu(cuda_device, batch):
+    """Two K8 launches per pass (stage elements, gains); the card against the same call on the CPU."""
+    horizon = 37
+    rng = np.random.default_rng(21)
+    lanes = [riccati_stages("cpu", seed=30 + i, horizon=horizon) for i in range(3)]
+    data = lanes[0] if not batch else (
+        torch.stack([lane[0] for lane in lanes]), torch.stack([lane[1] for lane in lanes]),
+        CostExpansion(*(torch.stack([lane[2][i] for lane in lanes]) for i in range(5))),
+        torch.stack([lane[3] for lane in lanes]), torch.stack([lane[4] for lane in lanes]))
+    reg = torch.from_numpy(10.0 ** rng.uniform(-6, -2, batch)) if batch else 1e-6
+    ref = riccati_backward_associative(*data, reg)
+    moved = [x.to(cuda_device) for x in data[:2]] + [CostExpansion(*(e.to(cuda_device) for e in data[2]))] + [
+        x.to(cuda_device) for x in data[3:]]
+    _build.reset_launches()
+    out = riccati_backward_associative(*moved, reg.to(cuda_device) if batch else reg)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {smallchol.KERNEL: 2}
+    _close_all(ref, out)

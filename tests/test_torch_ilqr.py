@@ -121,9 +121,15 @@ def test_ilqr_config_defaults_match_jax():
 
 
 def test_unported_solver_forms_name_their_roadmap_item():
-    _, tprob, _ = bench_problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.ilqr_solve(*tprob, tsolver.ILQRConfig(riccati="assoc", max_iter=1))
+    """The last solver form that was not ported, ``riccati="assoc"``, now solves: held to
+    JAX's associative-scan solve with the early exit (tol 1.0), as the other modes are."""
+    jprob, tprob, _ = bench_problem()
+    ref = jsolver.ilqr_solve(*jprob, jsolver.ILQRConfig(tol=1.0, max_iter=20, riccati="assoc"))
+    _build.reset_launches()
+    out = tsolver.ilqr_solve(*tprob, tsolver.ILQRConfig(tol=1.0, max_iter=20, riccati="assoc"))
+    assert sum(_build.launches.values()) == 0
+    assert bool(out.converged) and int(out.iterations) < 20
+    _close_solution(ref, out, gain_tol=1e-7)
 
 
 @pytest.mark.parametrize(

@@ -73,15 +73,25 @@ def test_riccati_backward_matches_jax_sequential():
 
 
 def test_cpu_dispatch_takes_plain_forms():
+    """CPU tensors reach no kernel; ``riccati_backward_auto`` takes JAX's branch there
+    (``tests/test_riccati.py::test_auto_dispatch_matches_both_forms``): the sequential
+    form below the crossover horizon or for a batch, the associative form for one
+    trajectory from H = 16 on."""
     data = _to_torch(*stages(seed=7))
     _build.reset_launches()
     fused = riccati_backward_fused(*data, 1e-6)
     _close_all(riccati_backward_fused_single_plain(*data, 1e-6), fused)
-    auto = riccati_backward_auto(*data, 1e-6)
+    auto = riccati_backward_auto(*data, 1e-6)  # H = 8 < 16
     _close_all(riccati_backward(*data, 1e-6), auto)
+    long = _to_torch(*stages(seed=7, horizon=40))
+    seq = riccati_backward(*long, 1e-6)
+    _close_all(seq, riccati_backward_auto(*long, 1e-6, batch_size=64))
+    auto = riccati_backward_auto(*long, 1e-6)
+    _close_all(riccati_backward_associative(*long, 1e-6), auto)
+    # reg sits on l_uu in the associative form, on Q_uu in the sequential one: JAX's tolerance.
+    np.testing.assert_allclose(auto.k_seq.numpy(), seq.k_seq.numpy(), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(auto.big_k_seq.numpy(), seq.big_k_seq.numpy(), rtol=1e-3, atol=1e-6)
     assert sum(_build.launches.values()) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        riccati_backward_associative(*data, 1e-6)
 
 
 @pytest.mark.parametrize("n, m", [(17, 4), (12, 9)])
