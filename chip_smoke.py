@@ -58,8 +58,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``benchmarks/suite.py``'s shapes (m=4, r=13, B=301, 65,536 and 1,048,576;
    float64 at 65,536) and the main path's widest launch (102,400 systems,
    r=25 and 13), timed beside ``torch.linalg.solve``; K9 (block-tridiagonal
-   SpMV) against its plain form at N=1,024 and 131,072 (n=12, both dtypes),
-   timed beside one ``torch.bmm`` of the stacked band.
+   SpMV) and its fused ``kkt_residual`` against their plain forms at N=1,024
+   and 131,072 (n=12, both dtypes), timed beside one ``torch.bmm`` of the
+   stacked band. Each timed shape prints the call time (CUDA events around
+   the public function, in turns with the library call), the device time of
+   the bare C entry point on prepared pointers and of the library call (both
+   queued behind a sleep kernel, so the device runs them back to back), and
+   the share of the bound. No profiler session: one slows the host's later
+   launches in its process, and later phases are bound by the host.
 12. The associative Riccati form (run last): the pass in float64 on the card
    against the CPU and against K1 (bench stages H=100, the suite's random LQ
    problem H=1024; exactly 2 K8 launches per pass), timed in float32 at H=50,
@@ -169,6 +175,9 @@ KKT_DX_RTOL, KKT_DX_ATOL = 1e-5, 1e-8
 # cores, float64 without tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+# queued_ms's sleep kernel: about 3 ms of the card's clock, longer than the host takes to queue 50 calls.
+QUEUE_SLEEP_CYCLES = 5_000_000
+QUEUED = {True: "", False: " (not queued ahead: host gaps count)"}
 
 K1 = "fused_riccati_single"
 K2 = "fused_rollout_single"
@@ -207,6 +216,46 @@ def time_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls queued behind a sleep kernel, so the
+    device runs them back to back (each call's kernels and the device's gap between launches) and the host's
+    time per call does not count. Returns (ms, queued): ``queued`` is False where the host took longer to
+    queue the calls than the sleep lasted, as for a call that synchronizes (``torch.linalg.solve`` checks its
+    result on the host); the time then includes the host's gaps between calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    host = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - host)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms < _sleep_ms()
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_ms():
+    """How long the sleep kernel of ``queued_ms`` lasts on this card (ms)."""
+    return time_ms(lambda: torch.cuda._sleep(QUEUE_SLEEP_CYCLES), 3)
+
+
+def in_turns(kernel, library, reps, rounds=5):
+    """Per-call ms of a kernel's public call and of the library call: CUDA events around ``reps`` calls,
+    in turns kernel, library, kernel, library, ... (``rounds`` turns each); the least of each.
+
+    Where the host takes longer per call than the device, this is the host's rate, which a shared host
+    disturbs now and then; the least of several turns is the undisturbed rate of each.
+    """
+    kernel_ms, library_ms = [], []
+    for _ in range(rounds):
+        kernel_ms.append(time_ms(kernel, reps))
+        library_ms.append(time_ms(library, reps))
+    return min(kernel_ms), min(library_ms)
 
 
 def bench_problem(dtype, horizon=100, device="cuda"):
@@ -677,29 +726,43 @@ def spd_batch(batch, m, r, dtype, seed=0):
 
 def phase_k8(report):
     """K8 against its plain form at the suite's and the main path's shapes; timed beside torch.linalg.solve."""
+    import ctypes
+
+    from quattro_tpu_torch.ops import _build
     from quattro_tpu_torch.ops.smallchol import batched_cholesky_solve_fused, batched_cholesky_solve_plain
 
+    bare_fn = _build.bind(K8, "qt_batched_cholesky", ctypes.c_int,
+                          [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
     for batch, r, dtype in K8_SHAPES:
         a, b = spd_batch(batch, 4, r, dtype)
         out = batched_cholesky_solve_fused(a, b)
         ref = batched_cholesky_solve_plain(a, b)
         torch.cuda.synchronize()
         bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
-        check(f"K8 B={batch} m=4 r={r} {dtype}", rel_errs(("x",), (out,), (ref,)), bound)
+        label = f"K8 B={batch} m=4 r={r} {dtype}"
+        check(label, rel_errs(("x",), (out,), (ref,)), bound)
         if batch < 65536:
             continue
-        ms = time_ms(lambda: batched_cholesky_solve_fused(a, b), 20)
+        x = torch.empty_like(b)
+        args = (0 if dtype == torch.float32 else 1, batch, 4, r, a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        bare = lambda: bare_fn(*args)
+        if bare() != 0:
+            raise AssertionError("K8: the bare entry point reported an error")
+        library = lambda: torch.linalg.solve(a, b)
+        ms, library_ms = in_turns(lambda: batched_cholesky_solve_fused(a, b), library, 20)
+        (kernel_ms, queued), (library_dev_ms, library_queued) = queued_ms(bare, 20), queued_ms(library, 20)
         plain_ms = time_ms(lambda: batched_cholesky_solve_plain(a, b), 3)
-        library_ms = time_ms(lambda: torch.linalg.solve(a, b), 3)
         b_ms, b_by = bound_ms(k8_work(batch, 4, r, dtype), dtype)
-        log(f"K8 B={batch} m=4 r={r} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.linalg.solve "
-            f"{library_ms:.3f} ms, bound {b_ms:.2e} ms ({b_by}), {batch / ms * 1e3:.3e} systems/s")
+        log(f"{label}: call {ms:.4f} ms, kernel only {kernel_ms:.4f} ms{QUEUED[queued]}; torch.linalg.solve call "
+            f"{library_ms:.4f} ms, device {library_dev_ms:.4f} ms{QUEUED[library_queued]}; plain {plain_ms:.3f} ms; "
+            f"bound {b_ms:.2e} ms ({b_by}), {b_ms / kernel_ms:.1%} of it; {batch / kernel_ms * 1e3:.3e} systems/s")
         if (batch, r, dtype) == K8_MAIN:
             report[K8] = dict(
                 name=K8, route="cuda", source="quattro_tpu_torch/csrc/batched_cholesky.cu",
                 replaces="quattro_tpu/ops/smallchol.py:101", launches=0,
                 max_abs_err=float((out - ref).abs().max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             )
 
 
@@ -713,21 +776,29 @@ def k9_work(num_blocks, n, dtype):
 
 def phase_k9(report):
     """K9 against its plain form at the suite's and the main path's shapes; timed beside one stacked-band bmm."""
-    from quattro_tpu_torch.ops.blocktridiag import BlockTridiagonal, btd_matvec_fused, btd_matvec_plain
+    import ctypes
 
+    from quattro_tpu_torch.ops import _build
+    from quattro_tpu_torch.ops.blocktridiag import (
+        BlockTridiagonal, btd_matvec_fused, btd_matvec_plain, kkt_residual,
+    )
+
+    bare_fn = _build.bind(K9, "qt_btd_matvec", ctypes.c_int,
+                          [ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6)
     n = 12
     for num_blocks, dtype in K9_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(num_blocks)
         mat = BlockTridiagonal(torch.randn(num_blocks, n, n, generator=gen, device="cuda", dtype=dtype),
                                torch.randn(num_blocks - 1, n, n, generator=gen, device="cuda", dtype=dtype))
         x = torch.randn(num_blocks, n, generator=gen, device="cuda", dtype=dtype)
+        rhs = torch.randn(num_blocks, n, generator=gen, device="cuda", dtype=dtype)
         out = btd_matvec_fused(mat, x)
+        res = kkt_residual(mat, x, rhs)
         ref = btd_matvec_plain(mat, x)
         torch.cuda.synchronize()
         bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
-        check(f"K9 N={num_blocks} n={n} {dtype}", rel_errs(("y",), (out,), (ref,)), bound)
-        ms = time_ms(lambda: btd_matvec_fused(mat, x), 50)
-        plain_ms = time_ms(lambda: btd_matvec_plain(mat, x), 10)
+        label = f"K9 N={num_blocks} n={n} {dtype}"
+        check(label, rel_errs(("y", "residual"), (out, res), (ref, (ref - rhs).abs().amax(-1))), bound)
         # The library yardstick: the contraction of the TPU kernel's body, one torch.bmm of the band
         # stacked as [L_{t-1} | D_t | L_t^T] (N, n, 3n) against [x_{t-1}; x_t; x_{t+1}] (N, 3n, 1).
         # The stacking is done once, outside the timed call.
@@ -736,18 +807,28 @@ def phase_k9(report):
                           torch.cat([mat.lower.transpose(-1, -2), zero_b])], dim=-1).contiguous()
         x_sta = torch.cat([torch.cat([zero_v, x[:-1]]), x, torch.cat([x[1:], zero_v])], dim=-1)[..., None].contiguous()
         lib_err = float((torch.bmm(band, x_sta)[..., 0] - ref).abs().max() / ref.abs().max())
-        library_ms = time_ms(lambda: torch.bmm(band, x_sta), 50)
+        library = lambda: torch.bmm(band, x_sta)
+        y = torch.empty_like(x)
+        args = (0 if dtype == torch.float32 else 1, num_blocks, n, mat.diag.data_ptr(), mat.lower.data_ptr(),
+                x.data_ptr(), None, y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        bare = lambda: bare_fn(*args)
+        if bare() != 0:
+            raise AssertionError("K9: the bare entry point reported an error")
+        ms, library_ms = in_turns(lambda: btd_matvec_fused(mat, x), library, 50)
+        (kernel_ms, queued), (library_dev_ms, library_queued) = queued_ms(bare, 50), queued_ms(library, 50)
+        residual_ms = min(time_ms(lambda: kkt_residual(mat, x, rhs), 50) for _ in range(3))
+        plain_ms = time_ms(lambda: btd_matvec_plain(mat, x), 10)
         b_ms, b_by = bound_ms(k9_work(num_blocks, n, dtype), dtype)
-        nnz_per_s = mat.block_nnz / (ms * 1e-3)
-        log(f"K9 N={num_blocks} n={n} {dtype}: kernel {ms:.4f} ms ({nnz_per_s:.3e} block-nnz/s), plain "
-            f"{plain_ms:.4f} ms, stacked-band bmm {library_ms:.4f} ms (rel err {lib_err:.1e}; stacking not timed), "
-            f"bound {b_ms:.2e} ms ({b_by})")
+        log(f"{label}: call {ms:.4f} ms, kernel only {kernel_ms:.4f} ms{QUEUED[queued]} "
+            f"({mat.block_nnz / kernel_ms * 1e3:.3e} block-nnz/s); stacked-band bmm call {library_ms:.4f} ms, device "
+            f"{library_dev_ms:.4f} ms{QUEUED[library_queued]} (rel err {lib_err:.1e}; stacking not timed); "
+            f"kkt_residual call {residual_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b_ms:.2e} ms ({b_by}), "
+            f"{b_ms / kernel_ms:.1%} of it")
         if (num_blocks, dtype) == K9_MAIN:
             report[K9] = dict(
                 name=K9, route="cuda", source="quattro_tpu_torch/csrc/btd_matvec.cu",
-                replaces="quattro_tpu/ops/blocktridiag.py:80", launches=0,
-                max_abs_err=float((out - ref).abs().max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                replaces="quattro_tpu/ops/blocktridiag.py:80", launches=0, max_abs_err=float((out - ref).abs().max()),
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             )
 
 
@@ -1348,8 +1429,8 @@ def main() -> int:
     phase_k4(report)
     phase_k5(report)
     phase_k67(report)
-    phase_k8(report)
     phase_k9(report)
+    phase_k8(report)
     batched = phase_batch(report)
     batched["trip"] = phase_batch_trip(report)
     rates = phase_bench(report)

@@ -12,9 +12,11 @@ here runs at import: the CPU test run collects without ``nvcc``.
 it with the host C++ compiler, so a CPU test can call the plant and cost
 derivatives that the kernels share.
 
-``launches`` counts kernel launches per kernel name. A wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its path went
-through the kernels.
+``bind`` hands a wrapper its C entry point with the prototype set once;
+``launch`` calls it on the tensors' current stream, raises if it reports an
+error, and counts the launch. ``launches`` counts kernel launches per kernel
+name: a wrapper adds one where it launches its kernel (through ``launch``) and
+nowhere else, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +40,7 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-Wno-unknown-pragmas"]  # the headers carry 
 launches: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Any] = {}
 _lock = threading.Lock()
 
 
@@ -72,6 +77,41 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(source: str, symbol: str, restype: Any, argtypes: Sequence[Any]) -> Any:
+    """The C function ``symbol`` of ``csrc/<source>``, its prototype set on the first call only.
+
+    Later calls return the same ctypes function from a cache, so a wrapper
+    pays one dictionary lookup per launch.
+    """
+    fn = _fns.get((source, symbol))
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        with _lock:
+            fn = _fns.setdefault((source, symbol), fn)
+    return fn
+
+
+def launch(kernel: str, fn: Any, device: Any, *args: Any) -> None:
+    """Call C entry point ``fn(*args, stream)`` on ``device``'s current stream and count one launch of ``kernel``.
+
+    ``device`` is a ``torch.device`` or a device index (``Tensor.get_device()``,
+    the cheaper of the two). The device is entered only when it is not already
+    the current one. Raises if the entry point reports a CUDA error.
+    """
+    index = device if isinstance(device, int) else device.index
+    current = torch._C._cuda_getDevice()
+    if index is None or index == current:
+        status = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if status != 0:  # a refused launch never runs
+        raise RuntimeError(f"{kernel}: CUDA error {status} at launch")
+    launches[kernel] += 1
+
+
 def build_all(sources: Iterable[str]) -> Dict[str, float]:
     """Build several sources at once (one ``nvcc`` each); returns seconds per source."""
 
@@ -84,9 +124,3 @@ def build_all(sources: Iterable[str]) -> Dict[str, float]:
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         seconds = list(pool.map(timed, sources))
     return dict(zip(sources, seconds))
-
-
-def check(status: int, kernel: str) -> None:
-    """Raise if a C entry point reported a CUDA error (a refused launch never runs)."""
-    if status != 0:
-        raise RuntimeError(f"{kernel}: CUDA error {status} at launch")

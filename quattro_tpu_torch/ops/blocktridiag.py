@@ -10,7 +10,8 @@ solve, the primal recovery and the residual, with the block-nnz accounting.
 
 The SpMV ``btd_matvec`` is kernel K9 on CUDA tensors (``btd_matvec_fused``,
 one launch of ``csrc/btd_matvec.cu``) and its plain three-product form
-``btd_matvec_plain`` on CPU tensors; ``kkt_residual`` reaches it.
+``btd_matvec_plain`` on CPU tensors; ``kkt_residual`` is one launch of the
+same kernel, which reduces the residual per block row in place of writing y.
 
 Derivation of ``build_lqr_kkt`` (stage data cross-term-eliminated as in
 ``solver/riccati.py::_stage_elements``, so stages are
@@ -34,7 +35,7 @@ with ``W_t = B_t l_uu^{-1} B_t'``, ``Z_0 = 0`` and ``ltil_x_H := v_x``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,6 +44,7 @@ from quattro_tpu_torch.solver.derivatives import CostExpansion
 
 KERNEL = "btd_matvec"
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6  # qt_btd_matvec
 
 
 class BlockTridiagonal(NamedTuple):
@@ -76,41 +78,50 @@ def btd_matvec_plain(mat: BlockTridiagonal, x: torch.Tensor) -> torch.Tensor:
     return y + torch.cat([zero, lo]) + torch.cat([up, zero])
 
 
-def _launch(mat: BlockTridiagonal, x: torch.Tensor) -> torch.Tensor:
+def _launch(mat: BlockTridiagonal, x: torch.Tensor, rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K9 launch: y = M x (N, n), or with ``rhs`` the residual max_i |(M x - rhs)_t,i| (N,).
+
+    At the KKT route's N = 1,024 the host's work per call takes longer than
+    the kernel, so the checks are one expression of attribute reads. Strided
+    inputs are copied (``build_lqr_kkt``'s diagonal blocks come out
+    transposed in memory).
+    """
     diag, lower = mat.diag, mat.lower
-    if diag.dim() != 3 or diag.shape[1] != diag.shape[2] or diag.shape[0] < 1:
-        raise ValueError(f"{KERNEL}: expected diag (N, n, n) with N >= 1, got {tuple(diag.shape)}")
-    num_blocks, n, _ = diag.shape
-    shapes = ((lower, (num_blocks - 1, n, n)), (x, (num_blocks, n)))
-    if diag.dtype not in _DTYPES:
-        raise ValueError(f"{KERNEL} takes float32 or float64, got {diag.dtype}")
-    for t, shape in shapes:
-        if tuple(t.shape) != shape or t.dtype != diag.dtype or t.device != diag.device:
-            raise ValueError(f"{KERNEL}: expected {shape} {diag.dtype} on {diag.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    dtype = _DTYPES.get(diag.dtype)
+    shape = diag.shape
+    if dtype is None or len(shape) != 3 or shape[1] != shape[2] or shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"{KERNEL}: expected float32 or float64 diag (N, n, n) with N, n >= 1, "
+                         f"got {tuple(shape)} {diag.dtype}")
+    num_blocks, n, _ = shape
+    device = diag.get_device()
+    if (lower.shape != (num_blocks - 1, n, n) or x.shape != (num_blocks, n)
+            or lower.dtype is not diag.dtype or x.dtype is not diag.dtype or lower.get_device() != device
+            or x.get_device() != device or rhs is not None and (
+                rhs.shape != x.shape or rhs.dtype is not x.dtype or rhs.get_device() != device)):
+        raise ValueError(f"{KERNEL}: expected lower ({num_blocks - 1}, {n}, {n}), x and rhs ({num_blocks}, {n}), "
+                         f"all {diag.dtype} on {diag.device}; got lower {tuple(lower.shape)} {lower.dtype} on "
+                         f"{lower.device}, x {tuple(x.shape)} {x.dtype} on {x.device}, rhs "
+                         f"{None if rhs is None else (tuple(rhs.shape), rhs.dtype, rhs.device)}")
     diag, lower, x = diag.contiguous(), lower.contiguous(), x.contiguous()
-    y = torch.empty_like(x)
-    lib = _build.library(KERNEL)
-    fn = lib.qt_btd_matvec
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 5
-    lower_ptr = lower.data_ptr() if lower.numel() else None
-    with torch.cuda.device(diag.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(_DTYPES[diag.dtype], num_blocks, n, diag.data_ptr(), lower_ptr, x.data_ptr(), y.data_ptr(),
-                    stream)
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
-    return y
+    if rhs is None:
+        out, rhs_ptr = torch.empty_like(x), None
+    else:
+        rhs = rhs.contiguous()
+        out, rhs_ptr = x.new_empty(num_blocks), rhs.data_ptr()
+    fn = _build.bind(KERNEL, "qt_btd_matvec", ctypes.c_int, _ARGTYPES)
+    _build.launch(KERNEL, fn, device, dtype, num_blocks, n, diag.data_ptr(),
+                  lower.data_ptr() if num_blocks > 1 else None, x.data_ptr(), rhs_ptr, out.data_ptr())
+    return out
 
 
 def btd_matvec_fused(mat: BlockTridiagonal, x: torch.Tensor) -> torch.Tensor:
     """The block-banded SpMV, counterpart of ``quattro_tpu/ops/blocktridiag.py::btd_matvec_pallas``.
 
-    CUDA tensors launch K9 once (float32 or float64, any N >= 1); CPU tensors
-    take the plain form. The TPU kernel's band stacking, structure-of-arrays
-    transposes and lane padding have no counterpart: the kernel reads the
-    bands where they lie.
+    CUDA tensors launch K9 once (float32 or float64, any N, n >= 1; anything
+    else raises ``ValueError``); CPU tensors take the plain form.
+    The TPU kernel's band stacking, structure-of-arrays transposes and lane
+    padding have no counterpart: the kernel stages tiles of block rows from
+    where the bands lie.
     """
     if mat.diag.is_cuda:
         return _launch(mat, x)
@@ -229,5 +240,13 @@ def recover_primal(system: LQRKKTSystem, lam: torch.Tensor) -> torch.Tensor:
 
 
 def kkt_residual(mat: BlockTridiagonal, solution: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """||M z - r||_inf per block row (factorization-quality telemetry); K9 on CUDA."""
-    return (btd_matvec_fused(mat, solution) - rhs).abs().amax(dim=-1)
+    """||M z - r||_inf per block row (factorization-quality telemetry).
+
+    CUDA tensors: one K9 launch, which reduces |M z - r| over each block row
+    in the kernel; CPU tensors: the plain form.
+    """
+    if mat.diag.is_cuda:
+        return _launch(mat, solution, rhs)
+    if mat.diag.device.type == "cpu":
+        return (btd_matvec_plain(mat, solution) - rhs).abs().amax(dim=-1)
+    raise ValueError(f"{KERNEL}: unsupported device {mat.diag.device}")

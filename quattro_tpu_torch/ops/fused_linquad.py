@@ -96,20 +96,12 @@ def _launch(dynamics, cost, x_seq, u_seq, tile_s, block_t):
     outputs = [x_seq.new_empty((batch // chunk * h_pad, math.prod(tail), tile_s, LANE))
                for tail in stage_shapes(n, m)]
 
-    lib = _build.library(KERNEL)
-    fn = lib.qt_fused_linquad
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 3
-                   + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p])
+    fn = _build.bind(KERNEL, "qt_fused_linquad", ctypes.c_int,
+                     [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 3
+                     + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            DTYPES[dtype], plant_id, batch, horizon, h_pad, chunk, rk4, params, dt, barrier_alpha, barrier_beta,
-            *[t.data_ptr() for t in inputs], out_ptrs, stream,
-        )
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
+    _build.launch(KERNEL, fn, device, DTYPES[dtype], plant_id, batch, horizon, h_pad, chunk, rk4, params, dt,
+                  barrier_alpha, barrier_beta, *[t.data_ptr() for t in inputs], out_ptrs)
     return tuple(outputs)
 
 

@@ -152,18 +152,10 @@ def _launch(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg) -> RiccatiOutput
     v_xx_seq = a_seq.new_empty((horizon + 1, n, n))
     outputs = [k_seq, big_k_seq, v_x_seq, v_xx_seq]
 
-    lib = _build.library(KERNEL)
-    fn = lib.qt_fused_riccati_single
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_double] + [ctypes.c_void_p] * 14
-    with torch.cuda.device(a_seq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            _DTYPES[dtype], horizon, n, m, float(reg),
-            *[t.data_ptr() for t in inputs], *[t.data_ptr() for t in outputs], stream,
-        )
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
+    fn = _build.bind(KERNEL, "qt_fused_riccati_single", ctypes.c_int,
+                     [ctypes.c_int] * 4 + [ctypes.c_double] + [ctypes.c_void_p] * 14)
+    _build.launch(KERNEL, fn, a_seq.device, _DTYPES[dtype], horizon, n, m, float(reg),
+                  *[t.data_ptr() for t in inputs], *[t.data_ptr() for t in outputs])
     return k_seq, big_k_seq, v_x_seq, v_xx_seq
 
 
@@ -322,19 +314,12 @@ def _launch_batched(stages, v_x_final, v_xx_final, reg, stream_dtype, horizon, p
     k_seq = v_x_final.new_empty((batch, horizon, m))
     big_k_seq = v_x_final.new_empty((batch, horizon, m, n))
 
-    lib = _build.library(BATCHED_KERNEL)
-    fn = lib.qt_fused_riccati_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5
+    fn = _build.bind(BATCHED_KERNEL, "qt_fused_riccati_batched", ctypes.c_int,
+                     [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5)
     stage_ptrs = (ctypes.c_void_p * len(stages))(*[t.data_ptr() for t in stages])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            _DTYPES[dtype], stored, int(packed is not None), batch, horizon, n, m, chunk, h_pad, float(reg),
-            stage_ptrs, *[t.data_ptr() for t in terminal], k_seq.data_ptr(), big_k_seq.data_ptr(), stream,
-        )
-    _build.check(status, BATCHED_KERNEL)
-    _build.launches[BATCHED_KERNEL] += 1
+    _build.launch(BATCHED_KERNEL, fn, device, _DTYPES[dtype], stored, int(packed is not None), batch, horizon, n, m,
+                  chunk, h_pad, float(reg), stage_ptrs, *[t.data_ptr() for t in terminal], k_seq.data_ptr(),
+                  big_k_seq.data_ptr())
     return k_seq, big_k_seq
 
 

@@ -111,20 +111,10 @@ def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
     cand_x = x0.new_empty((n_alpha, horizon + 1, n))
     cand_u = x0.new_empty((n_alpha, horizon, m))
 
-    lib = _build.library(KERNEL)
-    fn = lib.qt_fused_rollout
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
-                   + [ctypes.c_void_p] * 9)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            DTYPES[dtype], plant_id, horizon, n_alpha, rk4, params, dt,
-            *[t.data_ptr() for t in inputs],
-            cand_x.data_ptr(), cand_u.data_ptr(), stream,
-        )
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
+    fn = _build.bind(KERNEL, "qt_fused_rollout", ctypes.c_int,
+                     [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double] + [ctypes.c_void_p] * 9)
+    _build.launch(KERNEL, fn, x0.device, DTYPES[dtype], plant_id, horizon, n_alpha, rk4, params, dt,
+                  *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr())
     return cand_x, cand_u
 
 
@@ -185,19 +175,10 @@ def _launch_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq,
     cand_x = x0.new_empty((n_alpha, batch, horizon + 1, n))
     cand_u = x0.new_empty((n_alpha, batch, horizon, m))
 
-    lib = _build.library(BATCHED_KERNEL)
-    fn = lib.qt_fused_rollout_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double]
-                   + [ctypes.c_void_p] * 9)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            DTYPES[dtype], plant_id, batch, horizon, n_alpha, ref_rows, rk4, params, dt,
-            *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr(), stream,
-        )
-    _build.check(status, count)
-    _build.launches[count] += 1
+    fn = _build.bind(BATCHED_KERNEL, "qt_fused_rollout_batched", ctypes.c_int,
+                     [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double] + [ctypes.c_void_p] * 9)
+    _build.launch(count, fn, x0.device, DTYPES[dtype], plant_id, batch, horizon, n_alpha, ref_rows, rk4, params, dt,
+                  *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr())
     return cand_x, cand_u
 
 

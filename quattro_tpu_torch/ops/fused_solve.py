@@ -164,32 +164,20 @@ def _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter,
         x_init_seq.new_empty((1, 3)),
     ]
 
-    lib = _build.library(KERNEL)
-    count = lib.qt_fused_solve_workspace
-    count.restype = ctypes.c_longlong
-    count.argtypes = [ctypes.c_int] * 3
+    count = _build.bind(KERNEL, "qt_fused_solve_workspace", ctypes.c_longlong, [ctypes.c_int] * 3)
     workspace_elems = count(plant_id, horizon, n_alpha)
     if workspace_elems < 0:
         raise ValueError(f"{KERNEL}: no workspace size for plant {plant_id}, H={horizon}, {n_alpha} alphas")
     workspace = x_init_seq.new_empty((max(workspace_elems, 1),))
 
-    fn = lib.qt_fused_solve
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 5
-        + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    )
+    fn = _build.bind(KERNEL, "qt_fused_solve", ctypes.c_int,
+                     [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 5
+                     + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     in_ptrs = (ctypes.c_void_p * len(inputs))(*[t.data_ptr() for t in inputs])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt,
-            float(reg), float(tol), barrier_alpha, barrier_beta, in_ptrs, out_ptrs,
-            workspace.data_ptr(), workspace_elems, stream,
-        )
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
+    _build.launch(KERNEL, fn, device, DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt,
+                  float(reg), float(tol), barrier_alpha, barrier_beta, in_ptrs, out_ptrs, workspace.data_ptr(),
+                  workspace_elems)
     return tuple(outputs)
 
 

@@ -28,6 +28,7 @@ from quattro_tpu_torch.ops import _build
 KERNEL = "batched_cholesky"
 SMALL_DIM_MAX = 8  # batched_spd_solve's small_dim_max, and K8's largest m
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4  # qt_batched_cholesky
 
 
 def _unrolled_cholesky(a: torch.Tensor) -> torch.Tensor:
@@ -96,11 +97,11 @@ def batched_cholesky_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 3 or b.dim() != 3 or a.shape[1] != a.shape[2] or b.shape[:2] != a.shape[:2]:
         raise ValueError(f"{KERNEL}: expected a (B, m, m) and b (B, m, r), got {tuple(a.shape)} and {tuple(b.shape)}")
-    batch, m, _ = a.shape
-    r = b.shape[-1]
+    batch, m, r = b.shape
     if not 1 <= m <= SMALL_DIM_MAX:
         raise ValueError(f"{KERNEL} takes 1 <= m <= {SMALL_DIM_MAX}, got m={m} (larger systems: torch.linalg.solve)")
-    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+    dtype = _DTYPES.get(a.dtype)
+    if dtype is None or b.dtype != a.dtype:
         raise ValueError(f"{KERNEL} takes float32 or float64 a and b of one dtype, got {a.dtype} and {b.dtype}")
     if b.device != a.device:
         raise ValueError(f"{KERNEL}: a on {a.device}, b on {b.device}")
@@ -108,15 +109,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.empty_like(b)
     if batch == 0 or r == 0:
         return x
-    lib = _build.library(KERNEL)
-    fn = lib.qt_batched_cholesky
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(_DTYPES[a.dtype], batch, m, r, a.data_ptr(), b.data_ptr(), x.data_ptr(), stream)
-    _build.check(status, KERNEL)
-    _build.launches[KERNEL] += 1
+    fn = _build.bind(KERNEL, "qt_batched_cholesky", ctypes.c_int, _ARGTYPES)
+    _build.launch(KERNEL, fn, a.device, dtype, batch, m, r, a.data_ptr(), b.data_ptr(), x.data_ptr())
     return x
 
 
@@ -124,10 +118,11 @@ def batched_cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """Solve a batch of tiny SPD systems: a (B, m, m), b (B, m, r) -> x (B, m, r), any B.
 
     Counterpart of ``quattro_tpu/ops/smallchol.py::batched_cholesky_solve_pallas``.
-    CUDA tensors launch K8 once (float32 or float64, 1 <= m <= 8; anything
-    else raises ``ValueError``); CPU tensors take the plain form. The TPU
-    kernel's identity padding and SoA transposes have no counterpart: the
-    kernel reads the natural layout and bounds-checks the batch.
+    CUDA tensors launch K8 once (float32 or float64, 1 <= m <= 8, any r;
+    anything else raises ``ValueError``); CPU tensors take the plain form.
+    The TPU kernel's identity padding and SoA transposes have no counterpart:
+    the kernel stages tiles of systems in their natural layout through shared
+    memory and bounds-checks the last tile.
     """
     if a.is_cuda:
         return _launch(a, b)

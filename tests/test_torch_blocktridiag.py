@@ -52,6 +52,20 @@ def test_k9_plain_matches_jax_pallas_kernel_and_btd_matvec(num_blocks, n):
     assert sum(_build.launches.values()) == 0
 
 
+@pytest.mark.parametrize("num_blocks", [1, 2])
+@pytest.mark.parametrize("n", [4, 12])
+def test_btd_matvec_and_kkt_residual_at_the_shortest_systems_match_jax(num_blocks, n):
+    """N = 1 (no band) and N = 2 (one L, read as L and L^T): btd_matvec and kkt_residual against JAX's."""
+    diag, lower, x = random_btd(num_blocks, n, seed=10 * num_blocks + n)
+    rhs = np.random.default_rng(n).standard_normal((num_blocks, n))
+    jmat = jbtd.BlockTridiagonal(jnp.asarray(diag), jnp.asarray(lower))
+    mat = btd.BlockTridiagonal(torch.from_numpy(diag), torch.from_numpy(lower))
+    close(btd.btd_matvec(mat, torch.from_numpy(x)), jbtd.btd_matvec(jmat, jnp.asarray(x)))
+    res = btd.kkt_residual(mat, torch.from_numpy(x), torch.from_numpy(rhs))
+    assert res.shape == (num_blocks,)
+    close(res, jbtd.kkt_residual(jmat, jnp.asarray(x), jnp.asarray(rhs)))
+
+
 def test_block_nnz_and_num_blocks():
     diag, lower, _ = random_btd(10, 3, seed=4)
     mat = btd.BlockTridiagonal(torch.from_numpy(diag), torch.from_numpy(lower))

@@ -10,6 +10,8 @@ Inputs are made from numpy seeds; float64, rtol 1e-9 (the kernel and the
 plain form sum in different orders).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -479,6 +481,128 @@ def test_k9_on_card_matches_plain(cuda_device, num_blocks, n, dtype):
     bound = RTOL if dtype == torch.float64 else 1e-4
     assert float((out - ref).abs().max() / ref.abs().max()) <= bound
     assert float(res.max()) == 0.0
+
+
+_TILE_HELPERS = {  # C helper: (source, argtypes)
+    "qt_btd_matvec_tile": (blocktridiag.KERNEL, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]),
+    "qt_batched_cholesky_tile": (smallchol.KERNEL, [ctypes.c_int] * 3),
+}
+
+
+def _tile(symbol, *args):
+    """Tile size the kernel's launch takes, from its C helper."""
+    source, argtypes = _TILE_HELPERS[symbol]
+    return _build.bind(source, symbol, ctypes.c_int, argtypes)(*args)
+
+
+def _normwise(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [4, 12, 5, 13, 64, 65, 130],
+                         ids=["n4-templated", "n12-templated", "n5-generic", "n13-generic", "n64-over-48KB",
+                              "n65-rows", "n130-rows"])
+def test_k9_tile_edges_match_plain(cuda_device, n, dtype):
+    """N = 1, 2, one short of / at / one past the widest tile T, 1,025, and full tiles of T with a ragged end;
+    y and the fused residual each in one launch, against the plain form. n = 64 in float64 takes one block
+    row per CTA, with more than 48 KB of shared memory; n = 65 and 130 are too wide for the tile and take the
+    kernel that reads the band from device memory (130: more entries than threads)."""
+    code = 0 if dtype == torch.float32 else 1
+    widest = _tile("qt_btd_matvec_tile", code, 10**9, n, 0)
+    full = widest * torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    bound = RTOL if dtype == torch.float64 else 1e-4
+    for num_blocks in sorted({1, 2, max(widest - 1, 1), widest, widest + 1, 1025, full + 1, 3 * full - 1}):
+        rng = np.random.default_rng(num_blocks * 100 + n)
+        t = lambda v: torch.as_tensor(v, dtype=dtype, device=cuda_device)
+        mat = blocktridiag.BlockTridiagonal(t(rng.standard_normal((num_blocks, n, n))),
+                                            t(rng.standard_normal((num_blocks - 1, n, n))))
+        x, rhs = t(rng.standard_normal((num_blocks, n))), t(rng.standard_normal((num_blocks, n)))
+        _build.reset_launches()
+        out = blocktridiag.btd_matvec(mat, x)
+        res = blocktridiag.kkt_residual(mat, x, rhs)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {blocktridiag.KERNEL: 2}
+        ref = blocktridiag.btd_matvec_plain(mat, x)
+        assert out.shape == (num_blocks, n) and res.shape == (num_blocks,)
+        assert _normwise(out, ref) <= bound, num_blocks
+        assert _normwise(res, (ref - rhs).abs().amax(-1)) <= bound, num_blocks
+
+
+@pytest.mark.cuda
+def test_k9_refuses_empty_blocks_and_mismatched_rhs(cuda_device):
+    t = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=cuda_device)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="n >= 1"):
+        blocktridiag.btd_matvec(blocktridiag.BlockTridiagonal(t(2, 0, 0), t(1, 0, 0)), t(2, 0))
+    with pytest.raises(ValueError, match="expected"):
+        blocktridiag.kkt_residual(blocktridiag.BlockTridiagonal(t(3, 4, 4), t(2, 4, 4)), t(3, 4), t(2, 4))
+    assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_kkt_route_on_card_matches_cpu(cuda_device):
+    """build_lqr_kkt -> btd_solve -> recover_primal -> kkt_residual on the card against the CPU, with the
+    tensors as the route makes them (strided ones among them, which K9 copies); one K9 launch."""
+    rng = np.random.default_rng(5)
+    horizon, n, m = 40, 12, 4
+    w, wf = rng.standard_normal((horizon, n, n)), rng.standard_normal((n, n))
+    stages = (np.eye(n) + 0.01 * rng.standard_normal((horizon, n, n)), 0.05 * rng.standard_normal((horizon, n, m)),
+              (rng.standard_normal((horizon, n)), rng.standard_normal((horizon, m)),
+               0.1 * w @ np.swapaxes(w, -1, -2) + 0.1 * np.eye(n), np.broadcast_to(np.eye(m), (horizon, m, m)).copy(),
+               0.01 * rng.standard_normal((horizon, m, n))),
+              rng.standard_normal(n), wf @ wf.T + np.eye(n))
+
+    def route(device):
+        t = lambda v: torch.as_tensor(v, device=device)
+        a, b, exp, v_x, v_xx = stages
+        system = blocktridiag.build_lqr_kkt(t(a), t(b), CostExpansion(*(t(e) for e in exp)), t(v_x), t(v_xx), 1e-9)
+        lam = blocktridiag.btd_solve(system.matrix, system.rhs)
+        return system, lam, blocktridiag.recover_primal(system, lam), blocktridiag.kkt_residual(
+            system.matrix, lam, system.rhs)
+
+    cpu = route("cpu")
+    _build.reset_launches()
+    card = route(cuda_device)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {blocktridiag.KERNEL: 1}
+    _close_all(cpu[1:3], card[1:3])
+    scale = float(cpu[0].rhs.abs().max())
+    assert float(card[3].max()) < 1e-8 * scale
+    np.testing.assert_allclose(card[3].cpu().numpy(), cpu[3].numpy(), rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m, r", [(m, r) for m in (1, 4, 8) for r in (1, 13, 25, 40)]
+                         + [(8, 2048), (8, 2049), (4, 2049), (1, 4099)])
+def test_k8_tile_edges_match_plain(cuda_device, m, r, dtype):
+    """batch = 1, S - 1, S, S + 1 and 4 S + 3 (the ragged last tile) for the tile of S systems K8 takes;
+    r = 2048 at m = 8 takes one system per CTA, with more than 48 KB of shared memory; r > 2048 is too wide
+    for the tile and takes the kernel that solves chunks of columns in device memory (4,099: a ragged
+    chunk)."""
+    tile = _tile("qt_batched_cholesky_tile", 0 if dtype == torch.float32 else 1, m, r)
+    bound = RTOL if dtype == torch.float64 else 1e-4
+    for batch in sorted({1, max(tile - 1, 1), tile, tile + 1, 4 * tile + 3}):
+        a, b = spd_systems(cuda_device, batch, m, r, dtype, seed=batch + 10 * m + r)
+        _build.reset_launches()
+        out = smallchol.batched_cholesky_solve_fused(a, b)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {smallchol.KERNEL: 1}
+        assert out.shape == (batch, m, r)
+        assert _normwise(out, smallchol.batched_cholesky_solve_plain(a, b)) <= bound, batch
+
+
+@pytest.mark.cuda
+def test_k8_reads_an_unaligned_view(cuda_device):
+    """A view that starts off a 16-byte boundary takes the single loads of the unaligned head."""
+    a, b = spd_systems(cuda_device, 301, 4, 13, torch.float32)
+    a_buf = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+    b_buf = torch.cat([b.new_zeros(3), b.reshape(-1)])[3:].view(b.shape)
+    assert a_buf.data_ptr() % 16 and b_buf.data_ptr() % 16
+    out = smallchol.batched_cholesky_solve_fused(a_buf, b_buf)
+    assert _normwise(out, smallchol.batched_cholesky_solve_plain(a, b)) <= 1e-4
 
 
 @pytest.mark.cuda
