@@ -7,7 +7,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Build the eight CUDA sources (K1-K9) from ``quattro_tpu_torch/csrc`` (one nvcc each, in parallel).
 2. K1 (fused Riccati) against its plain PyTorch form on the card, on the
-   bench problem's stages (H=100, n=12, m=4), float64 and float32.
+   bench problem's stages (H=100, n=12, m=4), float64 and float32; timed in
+   float32 at H=50, 100 (bench stages) and 1,024 (the suite's random LQ
+   problem): the call, and the device time queued behind a sleep kernel, per
+   step beside the byte bound per step.
 3. K2 (fused all-alpha rollouts) against its plain form, quadrotor RK4,
    H=100, A=6, and cart-pole RK4, H=30, float64 and float32; and as the
    megakernel path uses it, the initial rollout of a warm start (one
@@ -29,7 +32,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    H=50 (the MPC shape) and H=100 (the bench problem), cart-pole at H=30;
    float64 and float32; forced trips (tol=0) and a run that converges before
    its last trip; ``iters`` and ``converged`` equal, x, u, k, K and cost
-   within the bounds below.
+   within the bounds below. Forced runs are timed: the call, and the device
+   time of the bare C entry point queued behind a sleep kernel, per time step
+   per trip.
 7. The megakernel MPC path at full width: ``make_quadrotor_mpc(horizon=50,
    solver="megakernel", max_iter=6)``, 300 closed-loop steps, the same error
    bar, exactly one K3 launch per step, step latency and device idle share;
@@ -162,6 +167,8 @@ K8_MAIN = (102400, 25, torch.float32)  # the shape of the kernels line
 # K9 alone: the suite's shapes (n=12) and the main path's (the KKT route, float64, N = H = 1024).
 K9_SHAPES = ((1024, torch.float32), (131072, torch.float32), (1024, torch.float64), (131072, torch.float64))
 K9_MAIN = (1024, torch.float64)
+# K1 timed at the bench stages' H=50 and 100 and at the suite's random LQ problem's H=1,024.
+K1_TIMED = (50, 100, 1024)
 # The associative Riccati form against K1: JAX's tolerance for the two forms,
 # which place reg differently (tests/test_riccati.py:110-113).
 ASSOC_K1_RTOL, ASSOC_K1_ATOL = 1e-3, 1e-6
@@ -362,6 +369,27 @@ def phase_k1(report):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             )
             log(f"K1 float32 H=100: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.2e} ms ({b_by})")
+    return k1_timing(torch.float32)
+
+
+def k1_timing(dtype):
+    """K1 at the bench stages' H=50 and 100 and the suite's random LQ H=1,024: the public call's time and the
+    device time queued behind a sleep kernel (so the host's time per call does not count), per step beside the
+    byte bound per step. The recursion is a chain of H steps, so the time per step is what a redesign moves."""
+    from quattro_tpu_torch.ops.fused_riccati import riccati_backward_fused_single
+
+    timing = {}
+    for horizon in K1_TIMED:
+        stages = random_lq(horizon, dtype) if horizon == 1024 else bench_stages(dtype, horizon)[1]
+        call = lambda: riccati_backward_fused_single(*stages, 1e-6)
+        call_ms = time_ms(call, 100)
+        dev_ms, queued = queued_ms(call, 10)  # ten calls queue within the sleep (about 0.13 ms of host time each)
+        b_ms, b_by = bound_ms(k1_work(horizon, 12, 4, dtype), dtype)
+        timing[horizon] = dict(call_ms=call_ms, queued_ms=dev_ms, queued=queued, us_per_step=1e3 * dev_ms / horizon,
+                               bound_us_per_step=1e3 * b_ms / horizon)
+        log(f"K1 float32 H={horizon}: call {call_ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]}, "
+            f"{1e3 * dev_ms / horizon:.3f} us per step (bound {1e3 * b_ms / horizon:.2e} us per step, {b_by})")
+    return timing
 
 
 def phase_k2(report):
@@ -441,8 +469,10 @@ def k3_work(horizon, n, m, n_alpha, trips, field_flops, dtype):
 
 def phase_k3(report):
     """K3 against its plain form at the shapes the entry points give it."""
-    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain
+    from quattro_tpu_torch.ops.fused_solve import _prepare, fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain
     from quattro_tpu_torch.solver import simulate, trajectory_cost
+
+    k3_timing = {}
 
     # (label, problem, n, m, flops per field evaluation, converging (tol, trips), forced trips by dtype).
     # Forced trips stop while the solve still descends in that precision:
@@ -487,7 +517,16 @@ def phase_k3(report):
                 if kind == "forced":
                     ms = time_ms(lambda: fused_ilqr_solve_kernel(*args), 50)
                     b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype), dtype)
-                    log(f"K3 {label} {dtype}, {trips} trips: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
+                    # The public call copies the step sizes to the card (a stream sync), so the device time is
+                    # taken on the bare C entry point with prepared pointers, queued behind a sleep kernel.
+                    fn, bare_args, _, _tensors = _prepare(*args)  # _tensors keeps the pointed-to tensors alive
+                    stream = torch.cuda.current_stream().cuda_stream
+                    dev_ms, queued = queued_ms(lambda: fn(*bare_args, stream), 20)
+                    per_step = 1e3 * dev_ms / (trips * horizon)
+                    log(f"K3 {label} {dtype}, {trips} trips: call {ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]} "
+                        f"({per_step:.3f} us per time step per trip), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
+                    if dtype == torch.float32 and label.startswith("quadrotor"):
+                        k3_timing[horizon] = dict(call_ms=ms, queued_ms=dev_ms, queued=queued, us_per_step_per_trip=per_step)
                     if dtype == torch.float32 and label == "quadrotor H=50":  # the shape the MPC path launches it at
                         report[K3] = dict(
                             name=K3, route="cuda", source="quattro_tpu_torch/csrc/fused_solve.cu",
@@ -495,6 +534,7 @@ def phase_k3(report):
                             max_abs_err=max(float((o - r).abs().max()) for o, r in zip(out, ref)),
                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                         )
+    return k3_timing
 
 
 def suite_batch(dtype, batch, seed=0):
@@ -1423,9 +1463,9 @@ def main() -> int:
     log(f"build: {seconds} s each, {time.perf_counter() - start:.1f} s wall")
 
     report = {}
-    phase_k1(report)
+    k1_times = phase_k1(report)
     phase_k2(report)
-    phase_k3(report)
+    k3_times = phase_k3(report)
     phase_k4(report)
     phase_k5(report)
     phase_k67(report)
@@ -1437,8 +1477,8 @@ def main() -> int:
     mpc, pure_xs = phase_mpc(report, root)
     mega = phase_megakernel(report)
     assoc = phase_assoc(report, pure_xs)
-    log(json.dumps({"summary": {"card": smi, "bench_iters_per_s": rates, "mpc": mpc, "mpc_megakernel": mega,
-                                "batched": batched, "assoc": assoc}}))
+    log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k3_timing": k3_times, "bench_iters_per_s": rates,
+                                "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {

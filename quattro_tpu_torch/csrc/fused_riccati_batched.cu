@@ -7,8 +7,8 @@
 // for a batch of independent trajectories: per step the Q-expansion, an
 // unrolled m x m Cholesky of Q_uu + reg I (rsqrt), the solve for [g_u | G] and
 // V_xx' = Q_xx - G'Q_ux - reg G'G; gains k = -g_u, K = -G. Here one kernel
-// serves both and runs K1's step law (riccati_step.cuh) unchanged, so lane b
-// is bit for bit one K1 launch on trajectory b. (The TPU batch2d kernel also
+// serves both and runs K1's step (riccati_step.cuh) unchanged, so lane b is
+// bit for bit one K1 launch on trajectory b. (The TPU batch2d kernel also
 // re-symmetrizes its V_xx carry; in exact arithmetic that changes nothing.)
 //
 // What bounds it: each trajectory is a chain of H dependent steps of a few
@@ -16,18 +16,22 @@
 // stage data at B=2048, H=50 (read once, 0.05 ms at the card's memory rate)
 // and about 1.6 GFLOP (0.02 ms at its float32 rate). The time is the chain's
 // latency, hidden by running many chains at once. Design: one CTA of 128
-// threads per trajectory, the (V_x, V_xx) carry in shared memory (7.4 KB in
-// float32), the CTA-wide step of riccati_step.cuh over the horizon; 2048
-// CTAs fill the 132 SMs about 16 deep, so the SMs switch between chains
-// while one waits on a barrier or a load. The TPU's lane layouts become
-// addressing: a stage tensor is either natural, (B, H, entries), or K5's
-// packed layout, (nb * h_pad, entries, tile_s * 128), where entry e of
+// threads per trajectory running riccati_pass of riccati_step.cuh, the step
+// K1 and K3 run (dispatched on (n, m) as K1 dispatches, so every lane runs
+// K1's instance): the (V_x, V_xx) carry and the step's tiles in shared
+// memory, the stage data of the next steps in flight into a shared-memory
+// ring by cp.async, three barriers per step; 7.5 KB of shared memory per CTA
+// in float32 at (12, 4). 2048 CTAs fill the 132 SMs many deep, so the SMs
+// switch between chains while one waits on a barrier. The TPU's lane layouts
+// become addressing: a stage tensor is either natural, (B, H, entries), or
+// K5's packed layout, (nb * h_pad, entries, tile_s * 128), where entry e of
 // trajectory b lies chunk = tile_s * 128 elements from entry e + 1 and the
 // first h_pad - H (identity) steps of each block are skipped: they come after
 // every real step in the backward recursion and leave the carry unchanged.
-// Stage inputs may be stored in bfloat16 and are widened at load; the carry,
-// the arithmetic and the outputs stay in the carry type. FP32 or FP64 FMAs
-// only: no tensor cores, no TF32.
+// Stage inputs may be stored in bfloat16: the ring holds the 32-bit word of
+// each value (cp.async moves at least 4 bytes) and the step widens it at use;
+// the carry, the arithmetic and the outputs stay in the carry type. FP32 or
+// FP64 FMAs only: no tensor cores, no TF32.
 //
 // C interface (no PyTorch header; bound with ctypes). Device arrays:
 //   stage = host array of 7 device pointers a, b, l_xx, l_uu, l_ux, l_x, l_u
@@ -60,40 +64,47 @@ struct Layout {
   int h_pad;   // padded horizon (packed only)
 };
 
-// Offset of entry 0 of stage t of trajectory b in a tensor of e entries per
-// stage, and the distance between entries.
-__device__ __forceinline__ long long stage_offset(const Layout& l, int B, int H, int e, int b, int t) {
-  if (!l.packed) return ((long long)b * H + t) * e;
+// Offset of entry 0 of step 0 of trajectory b in a stage tensor of e entries
+// per step. Step t lies t * e (natural) or t * e * chunk (packed) further on.
+__device__ __forceinline__ long long step0_offset(const Layout& l, int H, long long e, int b) {
+  if (!l.packed) return (long long)b * H * e;
   const long long blk = b / l.chunk, lane = b % l.chunk;
-  return ((blk * l.h_pad + (l.h_pad - H + t)) * e) * l.chunk + lane;
+  return ((blk * l.h_pad + (l.h_pad - H)) * e) * l.chunk + lane;
 }
 
-template <typename T, typename S>
+template <typename T, typename S, int NC, int MC, bool kMasked>
 __global__ void __launch_bounds__(kThreads) riccati_batched_kernel(
-    int B, int H, int n, int m, T reg, Layout layout, StagePtrs<S> stage,
+    int B, int H, int n_rt, int m_rt, T reg, Layout layout, StagePtrs<S> stage,
     const T* __restrict__ vxf, const T* __restrict__ vxxf, T* __restrict__ k_out,
     T* __restrict__ bigk_out) {
-  __shared__ qt::RiccatiScratch<T> s;
+  using Reader = qt::Strided<T, S>;
+  __shared__ qt::StepTiles<T, NC, MC> s;
+  __shared__ qt::StageRing<typename Reader::Word, NC, MC> ring;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int n = kMasked ? n_rt : NC;
+  const int m = kMasked ? m_rt : MC;
   const int nn = n * n;
   const int nm = n * m;
-  const int entries[kStages] = {nn, nm, nn, m * m, nm, n, m};
-  const long long stride = layout.packed ? layout.chunk : 1;
 
-  for (int i = tid; i < nn; i += blockDim.x) s.vxx[i] = vxxf[(size_t)b * nn + i];
-  for (int i = tid; i < n; i += blockDim.x) s.vx[i] = vxf[(size_t)b * n + i];
-
-  // The first barrier inside riccati_step orders these writes before its reads.
-  for (int t = H - 1; t >= 0; --t) {
-    qt::Strided<T, S> in[kStages];
-#pragma unroll
-    for (int q = 0; q < kStages; ++q)
-      in[q] = {stage.p[q] + stage_offset(layout, B, H, entries[q], b, t), stride};
-    qt::riccati_step<T>(s, n, m, reg, in[0], in[1], in[5], in[6], in[2], in[3], in[4],
-                     k_out + ((size_t)b * H + t) * m, bigk_out + ((size_t)b * H + t) * nm, nullptr,
-                     nullptr);
+  for (int i = threadIdx.x; i < NC * NC; i += blockDim.x) {
+    const int r = i / NC, c = i % NC;
+    if (r < n && c < n) s.vxx[i] = vxxf[(size_t)b * nn + r * n + c];
   }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s.vx[i] = vxf[(size_t)b * n + i];
+
+  // Stage pointers come in the packed order (a, b, l_xx, l_uu, l_ux, l_x,
+  // l_u); the step reads them as (a, b, l_x, l_u, l_xx, l_uu, l_ux).
+  const int order[qt::kStageTensors] = {0, 1, 5, 6, 2, 3, 4};
+  Reader rd[qt::kStageTensors];
+#pragma unroll
+  for (int k = 0; k < qt::kStageTensors; ++k) {
+    const int q = order[k];
+    const long long e = qt::stage_count(k, n, m);
+    rd[k] = {stage.p[q] + step0_offset(layout, H, e, b), layout.packed ? e * layout.chunk : e,
+             layout.packed ? layout.chunk : 1};
+  }
+  qt::riccati_pass<T, NC, MC, kMasked>(s, ring, H, n, m, reg, rd, k_out + (size_t)b * H * m,
+                                       bigk_out + (size_t)b * H * nm, nullptr, nullptr);
 }
 
 template <typename T, typename S>
@@ -101,10 +112,13 @@ int launch(int B, int H, int n, int m, double reg, Layout layout, const void* co
            const void* vxf, const void* vxxf, void* k, void* bigk, cudaStream_t stream) {
   StagePtrs<S> ptrs;
   for (int q = 0; q < kStages; ++q) ptrs.p[q] = static_cast<const S*>(stage[q]);
-  riccati_batched_kernel<T, S><<<B, kThreads, 0, stream>>>(
-      B, H, n, m, static_cast<T>(reg), layout, ptrs, static_cast<const T*>(vxf),
-      static_cast<const T*>(vxxf), static_cast<T*>(k), static_cast<T*>(bigk));
-  return static_cast<int>(cudaGetLastError());
+  return qt::step_shape(n, m, [&](auto shape) {
+    using Shape = decltype(shape);
+    riccati_batched_kernel<T, S, Shape::NC, Shape::MC, Shape::kMasked><<<B, kThreads, 0, stream>>>(
+        B, H, n, m, static_cast<T>(reg), layout, ptrs, static_cast<const T*>(vxf),
+        static_cast<const T*>(vxxf), static_cast<T*>(k), static_cast<T*>(bigk));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

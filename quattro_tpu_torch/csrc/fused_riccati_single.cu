@@ -10,12 +10,14 @@
 // What bounds it: the H steps form one dependency chain, and each step is a
 // few thousand flops on 12 x 12 tiles. The data (about 170 KB at H=100,
 // n=12, m=4 in f32) is far too small for bandwidth or arithmetic to matter,
-// so the time is the chain's latency: H steps times (shared-memory phases +
-// barriers). The design keeps the whole recursion in one CTA and one launch,
-// with the (V_x, V_xx) carry in shared memory, threads over the output
-// entries of each small product, and one thread for the m x m Cholesky.
-// The step itself is riccati_step.cuh, which the whole-solve kernel shares.
-// FP32 or FP64 FMAs only: no tensor cores, no TF32.
+// so the time is the chain's latency: H times one step's critical path. The
+// design keeps the whole recursion in one CTA and one launch and shortens
+// that path (riccati_step.cuh, shared with K3 and K4): compile-time shapes
+// for the quadrotor and the cart-pole, the stage data copied into a
+// shared-memory ring by cp.async steps ahead of its use, three barriers per
+// step, and the factor, the solve and the value update in registers, one
+// warp-synchronous phase. V_x and V_xx of each step leave in plain stores
+// that nothing waits on. FP32 or FP64 FMAs only: no tensor cores, no TF32.
 //
 // C interface (no PyTorch header; bound with ctypes). All pointers are
 // contiguous device arrays of the given dtype:
@@ -34,9 +36,9 @@ using qt::kMMax;
 using qt::kNMax;
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, int NC, int MC, bool kMasked>
 __global__ void __launch_bounds__(kThreads) riccati_single_kernel(
-    int H, int n, int m, T reg,
+    int H, int n_rt, int m_rt, T reg,
     const T* __restrict__ a, const T* __restrict__ b,
     const T* __restrict__ lx, const T* __restrict__ lu,
     const T* __restrict__ lxx, const T* __restrict__ luu,
@@ -44,32 +46,29 @@ __global__ void __launch_bounds__(kThreads) riccati_single_kernel(
     const T* __restrict__ vxf, const T* __restrict__ vxxf,
     T* __restrict__ k_out, T* __restrict__ bigk_out,
     T* __restrict__ vx_out, T* __restrict__ vxx_out) {
-  __shared__ qt::RiccatiScratch<T> s;
+  __shared__ qt::StepTiles<T, NC, MC> s;
+  __shared__ qt::StageRing<T, NC, MC> ring;
 
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int n = kMasked ? n_rt : NC;
+  const int m = kMasked ? m_rt : MC;
   const int nn = n * n;
-  const int nm = n * m;
-  const int mm = m * m;
-
-  for (int i = tid; i < nn; i += nt) {
-    const T v = vxxf[i];
-    s.vxx[i] = v;
-    vxx_out[(size_t)H * nn + i] = v;
+  for (int i = threadIdx.x; i < NC * NC; i += blockDim.x) {
+    const int r = i / NC, c = i % NC;
+    if (r < n && c < n) {
+      const T v = vxxf[r * n + c];
+      s.vxx[i] = v;
+      vxx_out[(size_t)H * nn + r * n + c] = v;
+    }
   }
-  for (int i = tid; i < n; i += nt) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const T v = vxf[i];
     s.vx[i] = v;
     vx_out[(size_t)H * n + i] = v;
   }
 
-  // The first barrier inside riccati_step orders these writes before its reads.
-  for (int t = H - 1; t >= 0; --t) {
-    qt::riccati_step(s, n, m, reg, a + (size_t)t * nn, b + (size_t)t * nm, lx + (size_t)t * n,
-                     lu + (size_t)t * m, lxx + (size_t)t * nn, luu + (size_t)t * mm,
-                     lux + (size_t)t * nm, k_out + (size_t)t * m, bigk_out + (size_t)t * nm,
-                     vx_out + (size_t)t * n, vxx_out + (size_t)t * nn);
-  }
+  const qt::Strided<T, T> rd[qt::kStageTensors] = {
+      {a, nn, 1}, {b, n * m, 1}, {lx, n, 1}, {lu, m, 1}, {lxx, nn, 1}, {luu, m * m, 1}, {lux, m * n, 1}};
+  qt::riccati_pass<T, NC, MC, kMasked>(s, ring, H, n, m, reg, rd, k_out, bigk_out, vx_out, vxx_out);
 }
 
 template <typename T>
@@ -77,15 +76,18 @@ int launch(int H, int n, int m, double reg, const void* a, const void* b,
            const void* lx, const void* lu, const void* lxx, const void* luu,
            const void* lux, const void* vxf, const void* vxxf, void* k,
            void* bigk, void* vx, void* vxx, cudaStream_t stream) {
-  riccati_single_kernel<T><<<1, kThreads, 0, stream>>>(
-      H, n, m, static_cast<T>(reg), static_cast<const T*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(lx),
-      static_cast<const T*>(lu), static_cast<const T*>(lxx),
-      static_cast<const T*>(luu), static_cast<const T*>(lux),
-      static_cast<const T*>(vxf), static_cast<const T*>(vxxf),
-      static_cast<T*>(k), static_cast<T*>(bigk), static_cast<T*>(vx),
-      static_cast<T*>(vxx));
-  return static_cast<int>(cudaGetLastError());
+  return qt::step_shape(n, m, [&](auto shape) {
+    using Shape = decltype(shape);
+    riccati_single_kernel<T, Shape::NC, Shape::MC, Shape::kMasked><<<1, kThreads, 0, stream>>>(
+        H, n, m, static_cast<T>(reg), static_cast<const T*>(a),
+        static_cast<const T*>(b), static_cast<const T*>(lx),
+        static_cast<const T*>(lu), static_cast<const T*>(lxx),
+        static_cast<const T*>(luu), static_cast<const T*>(lux),
+        static_cast<const T*>(vxf), static_cast<const T*>(vxxf),
+        static_cast<T*>(k), static_cast<T*>(bigk), static_cast<T*>(vx),
+        static_cast<T*>(vxx));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

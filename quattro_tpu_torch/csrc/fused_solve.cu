@@ -3,9 +3,9 @@
 // Replaces the TPU kernel quattro_tpu/ops/fused_solve.py::
 // fused_ilqr_solve_kernel. max_iter fixed trips, each
 //   1. linearize + quadratize along the current trajectory,
-//   2. backward Riccati (the step of riccati_step.cuh, shared with K1),
-//   3. closed-loop rollouts for every step size alpha, the running cost
-//      summed step by step inside the rollout and the final cost added last,
+//   2. backward Riccati (riccati_step.cuh, shared with K1 and K4),
+//   3. closed-loop rollouts for every step size alpha, then their running
+//      costs, summed per alpha in time order with the final cost added last,
 //   4. first-accept select (the first alpha with total <= current cost) and
 //      the convergence bookkeeping,
 // under a `done` mask: trips after convergence recompute on the frozen
@@ -21,18 +21,32 @@
 //
 // What bounds it: latency. One solve is a few hundred KB and a few MFLOP; the
 // trips are sequential, and inside a trip the Riccati recursion and the
-// rollouts are chains over H. Design: one CTA of 256 threads per solve, the
-// phases separated by barriers.
+// rollouts are chains over H: clock stamps on an H100 (quadrotor, H=50,
+// float32) put half a trip in the rollouts' integrator chain and a third in
+// the Riccati recursion. Design: one CTA of 256 threads per solve, the phases
+// separated by barriers.
 //   - linearize: one thread per (time step, tangent direction), H (n + m)
-//     scalar-dual integrator steps, then one thread per time step for the
-//     cost expansion;
-//   - Riccati: the CTA-wide step, the (V_x, V_xx) carry in shared memory;
-//   - rollouts: one thread per alpha, state in registers;
+//     scalar-dual integrator steps; then one thread per time step for the
+//     cost expansion. The cost tables are staged in shared memory once per
+//     launch. (At H=50 the 800 columns take four rounds of 256, the last
+//     nearly idle; 288 and 416 threads take three and two, but made the whole
+//     solve 5.6 % and 3.2 % slower on an H100, quadrotor, float32.)
+//   - Riccati: riccati_pass of riccati_step.cuh, the stage data streamed from
+//     the workspace through its cp.async ring.
+//   - rollouts: one thread per alpha, state in registers, reading the trip's
+//     x, u, k and K from shared memory. They are staged by cp.async in chunks
+//     of steps into dynamic shared memory: the whole trajectory in one chunk
+//     where it fits in kStageBytes (H=50 float32: 13.6 KB; H=100 float64:
+//     54.4 KB), else two slots that alternate, the next chunk in flight while
+//     the lanes integrate the current one. The chain of a step is the
+//     feedback law and the integrator step only.
+//   - costs: every (alpha, step) running cost at once, on all threads, into a
+//     block of shared memory; each alpha's lane sums its block in time order.
 //   - select: one thread; the copy of the accepted candidate: all threads.
 // The trajectory lives in the output buffers, the stage data, the trip's
 // gains and the candidates in a global workspace the caller allocates (about
 // 110 KB for the quadrotor at H=50 in float32: it stays in L2), so no horizon
-// is too long for shared memory. Buffers that are written and read inside the
+// is too long for the kernel. Buffers that are written and read inside the
 // launch are not declared const __restrict__, so no read goes through the
 // non-coherent path. FP32 or FP64 FMAs only, no fast-math.
 //
@@ -48,15 +62,21 @@
 #include "costs.cuh"
 #include "plants.cuh"
 #include "riccati_step.cuh"
+#include "tile_copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxAlphas = 64;
+// Dynamic shared memory for the rollouts' staged trajectory (and then the
+// block of running costs).
+constexpr int kStageBytes = 64 * 1024;
+
+constexpr int kThreads = 256;
 
 template <typename T>
 struct SolveArgs {
   int H, n_alpha, max_iter, rk4;
+  int chunk, slots, cost_steps;  // rollout staging: steps per chunk, 1 or 2 slots; steps per cost block
   qt::StepSizes<T> h;
   T reg, tol, barrier_alpha, barrier_beta;
   const T *x_init, *u_init, *cost_init, *q, *r, *x_ref, *qf, *xf_ref, *alphas;
@@ -72,6 +92,9 @@ constexpr long long per_step(int n, int m) {
 constexpr long long workspace_count(int n, int m, int H, int n_alpha) {
   return H * per_step(n, m) + (long long)n_alpha * ((H + 1) * n + H * m);
 }
+
+// Values one rollout step reads: x_t (n), u_t (m), k_t (m), K_t (m, n).
+QT_HD constexpr int staged_per_step(int n, int m) { return n + 2 * m + m * n; }
 
 template <typename T>
 void carve(SolveArgs<T>& g, T* ws, int n, int m) {
@@ -89,6 +112,50 @@ void carve(SolveArgs<T>& g, T* ws, int n, int m) {
   g.cand_u = ws;
 }
 
+// Staging of the rollouts, and the elements of dynamic shared memory it needs.
+template <typename T>
+long long plan_staging(SolveArgs<T>& g, int n, int m) {
+  const int per = staged_per_step(n, m);
+  const int fit = kStageBytes / (per * (int)sizeof(T));
+  if (g.H <= fit) {
+    g.chunk = g.H > 0 ? g.H : 1;
+    g.slots = 1;
+  } else {
+    g.chunk = fit / 2;
+    g.slots = 2;
+  }
+  const long long stage = (long long)g.slots * g.chunk * per;
+  const long long steps = stage / g.n_alpha;
+  g.cost_steps = (int)(steps < 1 ? 1 : steps < g.H ? steps : (g.H > 0 ? g.H : 1));
+  const long long costs = (long long)g.n_alpha * g.cost_steps;
+  return stage > costs ? stage : costs;
+}
+
+// The address of a cost table in shared memory, in float64 hidden from the
+// optimizer anew in each iteration of the loops that read it. Nothing in those
+// loops writes the tables, so the compiler hoists all their loads (Q alone is
+// 144 values) out of the loop into registers. In float32 they fit (249
+// registers, no spill) and the solve is 3-7 % faster on an H100 than with
+// the loads kept in the loop; in float64 the quadrotor kernel spilled 880 bytes.
+template <typename T>
+__device__ __forceinline__ const T* reloaded(const T* table) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (sizeof(T) == 8) asm volatile("" : "+l"(table));
+#endif
+  return table;
+}
+
+// cp.async of steps [t0, t0 + len) of x, u, k and K into a staging slot laid
+// out as x (chunk, n), u (chunk, m), k (chunk, m), K (chunk, m, n).
+template <typename T, int N, int M>
+__device__ __forceinline__ void stage_chunk(const SolveArgs<T>& g, T* slot, int t0, int len) {
+  const int c = g.chunk;
+  qt::load_tile_async(g.x + (size_t)t0 * N, len * N, [&](int e) { return slot + e; });
+  qt::load_tile_async(g.u + (size_t)t0 * M, len * M, [&](int e) { return slot + c * N + e; });
+  qt::load_tile_async(g.kt + (size_t)t0 * M, len * M, [&](int e) { return slot + c * (N + M) + e; });
+  qt::load_tile_async(g.big_kt + (size_t)t0 * M * N, len * M * N, [&](int e) { return slot + c * (N + 2 * M) + e; });
+}
+
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant) {
   constexpr int N = P::N;
@@ -96,10 +163,15 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
   constexpr int NN = N * N;
   constexpr int NM = N * M;
   constexpr int MM = M * M;
-  __shared__ qt::RiccatiScratch<T> s;
+  constexpr int kStaged = staged_per_step(N, M);
+  __shared__ qt::StepTiles<T, N, M> s;
+  __shared__ qt::StageRing<T, N, M> ring;
+  __shared__ T q_s[NN], r_s[MM], xref_s[N], qf_s[NN], xfref_s[N];
   __shared__ T totals[kMaxAlphas];
   __shared__ T cur_cost;
   __shared__ int done, iters, chosen, update, active;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  T* dyn = reinterpret_cast<T*>(dyn_raw);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -111,6 +183,15 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
     g.k[i] = T(0);
   }
   for (int i = tid; i < H * NM; i += nt) g.big_k[i] = T(0);
+  for (int i = tid; i < NN; i += nt) {
+    q_s[i] = g.q[i];
+    qf_s[i] = g.qf[i];
+  }
+  for (int i = tid; i < MM; i += nt) r_s[i] = g.r[i];
+  for (int i = tid; i < N; i += nt) {
+    xref_s[i] = g.x_ref[i];
+    xfref_s[i] = g.xf_ref[i];
+  }
   if (tid == 0) {
     cur_cost = g.cost_init[0];
     done = 0;
@@ -143,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
       for (int i = 0; i < N; ++i) x[i] = g.x[t * N + i];
 #pragma unroll
       for (int j = 0; j < M; ++j) u[j] = g.u[t * M + j];
-      qt::running_cost_expansion<N, M>(g.q, g.r, g.x_ref, g.barrier_alpha, g.barrier_beta, x, u,
+      qt::running_cost_expansion<N, M>(reloaded(q_s), reloaded(r_s), reloaded(xref_s), g.barrier_alpha, g.barrier_beta, x, u,
                                        g.lx + (size_t)t * N, g.lu + (size_t)t * M,
                                        g.lxx + (size_t)t * NN, g.luu + (size_t)t * MM,
                                        g.lux + (size_t)t * NM);
@@ -153,59 +234,101 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
       T xf[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) xf[i] = g.x[(size_t)H * N + i];
-      qt::final_cost_expansion<N>(g.qf, g.xf_ref, xf, s.vx, s.vxx);
+      qt::final_cost_expansion<N>(qf_s, xfref_s, xf, s.vx, s.vxx);
     }
     __syncthreads();
 
     // ---- 2. backward Riccati ------------------------------------------------
-    for (int t = H - 1; t >= 0; --t) {
-      qt::riccati_step<T>(s, N, M, g.reg, g.a + (size_t)t * NN, g.b + (size_t)t * NM,
-                          g.lx + (size_t)t * N, g.lu + (size_t)t * M, g.lxx + (size_t)t * NN,
-                          g.luu + (size_t)t * MM, g.lux + (size_t)t * NM, g.kt + (size_t)t * M,
-                          g.big_kt + (size_t)t * NM, nullptr, nullptr);
+    {
+      // Readers of the workspace's stage data, made here so that they hold no
+      // registers while the linearize phase needs them all.
+      const qt::Strided<T, T> rd[qt::kStageTensors] = {{g.a, NN, 1},  {g.b, NM, 1},   {g.lx, N, 1},  {g.lu, M, 1},
+                                                       {g.lxx, NN, 1}, {g.luu, MM, 1}, {g.lux, NM, 1}};
+      qt::riccati_pass<T, N, M, false>(s, ring, H, N, M, g.reg, rd, g.kt, g.big_kt, nullptr, nullptr);
     }
 
-    // ---- 3. all-alpha rollouts with the running cost ------------------------
-    for (int c = tid; c < g.n_alpha; c += nt) {
-      const T alpha = g.alphas[c];
-      T* xo = g.cand_x + (size_t)c * (H + 1) * N;
-      T* uo = g.cand_u + (size_t)c * H * M;
-      T x[N];
+    // ---- 3. all-alpha rollouts ----------------------------------------------
+    // Lane c < n_alpha carries candidate c's state across the chunks.
+    const int c = tid;
+    const T alpha = c < g.n_alpha ? g.alphas[c] : T(0);
+    T* xo = g.cand_x + (size_t)c * (H + 1) * N;
+    T* uo = g.cand_u + (size_t)c * H * M;
+    T x[N];
+    if (c < g.n_alpha) {
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         x[i] = g.x[i];
         xo[i] = x[i];
       }
-      T run = T(0);
-      for (int t = 0; t < H; ++t) {
-        T dxr[N], u[M];
-#pragma unroll
-        for (int i = 0; i < N; ++i) dxr[i] = x[i] - g.x[(size_t)t * N + i];
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          const T* kr = g.big_kt + ((size_t)t * M + j) * N;
-          T acc = T(0);
-#pragma unroll
-          for (int i = 0; i < N; ++i) acc += dxr[i] * kr[i];
-          u[j] = g.u[(size_t)t * M + j] + alpha * (g.kt[(size_t)t * M + j] + acc);
-          uo[(size_t)t * M + j] = u[j];
-        }
-        run = run + qt::running_cost<N, M>(g.q, g.r, g.x_ref, g.barrier_alpha, g.barrier_beta, x, u);
-        qt::discrete_step(plant, g.rk4, g.h, x, u, x);
-#pragma unroll
-        for (int i = 0; i < N; ++i) xo[(size_t)(t + 1) * N + i] = x[i];
-      }
-      totals[c] = run + qt::final_cost<N>(g.qf, g.xf_ref, x);
     }
+    const int n_chunks = (H + g.chunk - 1) / g.chunk;
+    if (n_chunks > 0) stage_chunk<T, N, M>(g, dyn, 0, min(g.chunk, H));
+    qt::commit_async();
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int t0 = ch * g.chunk;
+      const int len = min(g.chunk, H - t0);
+      T* slot = dyn + (size_t)(g.slots == 2 ? (ch & 1) : 0) * g.chunk * kStaged;
+      if (ch + 1 < n_chunks) {  // its slot's last reader was chunk ch - 1, before the barrier that ended it
+        const int t1 = t0 + g.chunk;
+        stage_chunk<T, N, M>(g, dyn + (size_t)((ch + 1) & 1) * g.chunk * kStaged, t1, min(g.chunk, H - t1));
+      }
+      qt::commit_async();
+      qt::wait_async_groups<1>();  // chunk ch has arrived
+      __syncthreads();
+      if (c < g.n_alpha) {
+        const T* xs = slot;
+        const T* us = slot + g.chunk * N;
+        const T* ks = slot + g.chunk * (N + M);
+        const T* bks = slot + g.chunk * (N + 2 * M);
+        for (int j = 0; j < len; ++j) {
+          const int t = t0 + j;
+          T dxr[N], u[M];
+#pragma unroll
+          for (int i = 0; i < N; ++i) dxr[i] = x[i] - xs[j * N + i];
+#pragma unroll
+          for (int jj = 0; jj < M; ++jj) {
+            const T* kr = bks + (j * M + jj) * N;
+            T acc = T(0);
+#pragma unroll
+            for (int i = 0; i < N; ++i) acc += dxr[i] * kr[i];
+            u[jj] = us[j * M + jj] + alpha * (ks[j * M + jj] + acc);
+            uo[(size_t)t * M + jj] = u[jj];
+          }
+          qt::discrete_step(plant, g.rk4, g.h, x, u, x);
+#pragma unroll
+          for (int i = 0; i < N; ++i) xo[(size_t)(t + 1) * N + i] = x[i];
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- 3b. running costs of every (alpha, step), summed per alpha -----------
+    // Blocks of cost_steps steps; lane c sums its row of each block in time
+    // order, so the totals round as a step-by-step sum does.
+    T run = T(0);
+    for (int t0 = 0; t0 < H; t0 += g.cost_steps) {
+      const int len = min(g.cost_steps, H - t0);
+      for (int task = tid; task < g.n_alpha * len; task += nt) {
+        const int a = task / len, j = task % len, t = t0 + j;
+        dyn[task] = qt::running_cost<N, M>(reloaded(q_s), reloaded(r_s), reloaded(xref_s), g.barrier_alpha, g.barrier_beta,
+                                           g.cand_x + ((size_t)a * (H + 1) + t) * N,
+                                           g.cand_u + ((size_t)a * H + t) * M);
+      }
+      __syncthreads();
+      if (c < g.n_alpha)
+        for (int j = 0; j < len; ++j) run = run + dyn[c * len + j];
+      __syncthreads();
+    }
+    if (c < g.n_alpha) totals[c] = run + qt::final_cost<N>(qf_s, xfref_s, x);
     __syncthreads();
 
     // ---- 4. first-accept select and bookkeeping -----------------------------
     if (tid == 0) {
       const T cur = cur_cost;
       int first = -1;
-      for (int c = 0; c < g.n_alpha; ++c) {
-        if (totals[c] <= cur) {
-          first = c;
+      for (int a = 0; a < g.n_alpha; ++a) {
+        if (totals[a] <= cur) {
+          first = a;
           break;
         }
       }
@@ -249,6 +372,7 @@ template <typename T, template <typename> class Plant>
 int launch(int H, int n_alpha, int max_iter, int rk4, const double* params, double dt, double reg,
            double tol, double barrier_alpha, double barrier_beta, const void* const* in,
            void* const* out, void* workspace, cudaStream_t stream) {
+  using P = Plant<T>;
   SolveArgs<T> g;
   g.H = H;
   g.n_alpha = n_alpha;
@@ -275,8 +399,18 @@ int launch(int H, int n_alpha, int max_iter, int rk4, const double* params, doub
   g.k = o[2];
   g.big_k = o[3];
   g.stats = o[4];
-  carve(g, static_cast<T*>(workspace), Plant<T>::N, Plant<T>::M);
-  solve_kernel<T, Plant<T>><<<1, kThreads, 0, stream>>>(g, Plant<T>::from(params));
+  carve(g, static_cast<T*>(workspace), P::N, P::M);
+  const size_t dyn_bytes = plan_staging(g, P::N, P::M) * sizeof(T);
+  // Above 48 KB of shared memory a kernel must opt in; the largest size set
+  // so far is kept, so the attribute is set once per size that grows.
+  static size_t opted = 0;
+  if (dyn_bytes > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(solve_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(dyn_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = dyn_bytes;
+  }
+  solve_kernel<T, P><<<1, kThreads, dyn_bytes, stream>>>(g, P::from(params));
   return static_cast<int>(cudaGetLastError());
 }
 

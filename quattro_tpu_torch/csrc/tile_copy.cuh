@@ -1,5 +1,6 @@
 // Coalesced copies of a contiguous range of device memory into and out of a
-// CTA's shared-memory tile (kernels K8 and K9).
+// CTA's shared-memory tile (kernels K8 and K9), and the groups of copies that
+// fill the Riccati stage ring (K1, K3 and K4).
 //
 // All threads of the block take part, neighbouring threads on neighbouring
 // values, and the shared-memory side is a functor of the value's index in the
@@ -76,6 +77,15 @@ __device__ inline void copy_async(T* dst_shared, const T* src) {
 }
 
 __device__ inline void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Groups of copies (the Riccati stage ring, riccati_step.cuh): commit_async closes the thread's copies issued
+// since the last commit into one group; wait_async_groups<N> waits until at most N of its groups are in flight.
+__device__ inline void commit_async() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ inline void wait_async_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // cp.async of src[e] to dst(e) for e in [0, count): neighbouring threads on neighbouring values, so each warp's
 // copies are one coalesced 128- (float32) or 256-byte (float64) access. Call wait_async, then __syncthreads.

@@ -131,7 +131,9 @@ def cost_tables(kernel: str, cost, final_cost, n: int, m: int, like: torch.Tenso
     return [t.contiguous() for t in tables], float(cost.barrier_alpha), float(cost.barrier_beta)
 
 
-def _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas) -> SolveOutputs:
+def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas):
+    """K3's checked arguments: ``(fn, args, outputs, keep)``. ``fn(*args, stream)`` is one launch
+    (``_build.launch`` adds the stream); ``keep`` holds the tensors that the pointers in ``args`` name."""
     horizon, m = u_init.shape
     n = x_init_seq.shape[-1]
     n_alpha = len(alphas)
@@ -175,10 +177,15 @@ def _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter,
                      + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     in_ptrs = (ctypes.c_void_p * len(inputs))(*[t.data_ptr() for t in inputs])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
-    _build.launch(KERNEL, fn, device, DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt,
-                  float(reg), float(tol), barrier_alpha, barrier_beta, in_ptrs, out_ptrs, workspace.data_ptr(),
-                  workspace_elems)
-    return tuple(outputs)
+    args = (DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt, float(reg), float(tol),
+            barrier_alpha, barrier_beta, in_ptrs, out_ptrs, workspace.data_ptr(), workspace_elems)
+    return fn, args, tuple(outputs), (inputs, workspace)
+
+
+def _launch(*problem) -> SolveOutputs:
+    fn, args, outputs, _ = _prepare(*problem)
+    _build.launch(KERNEL, fn, outputs[0].device, *args)
+    return outputs
 
 
 def fused_ilqr_solve_kernel(

@@ -7,7 +7,11 @@ PyTorch; ``tests/conftest.py`` configures JAX, so skip it there:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Inputs are made from numpy seeds; float64, rtol 1e-9 (the kernel and the
-plain form sum in different orders).
+plain form sum in different orders). The edge cases of the Riccati step
+(``csrc/riccati_step.cuh``: each shape instance, horizons around its stage
+ring's depth, K3's chunked staging) are also run in float32 and held
+normwise, as ``chip_smoke.py`` holds the kernels: max |kernel - plain| over
+max |plain| per tensor, float64 <= 1e-10 (K3 1e-9), float32 <= 1e-4.
 """
 
 import ctypes
@@ -80,6 +84,49 @@ def test_k1_on_card_matches_plain(cuda_device, horizon):
     torch.cuda.synchronize()
     assert _build.launches[fused_riccati.KERNEL] == 1
     _close_all(fused_riccati.riccati_backward_fused_single_plain(*data, 1e-6), out)
+
+
+RING_DEPTH = 3  # kRingDepth of csrc/riccati_step.cuh: the stage ring's slots
+STEP_SHAPES = [(12, 4), (4, 1), (16, 8), (1, 1), (7, 3)]  # both exact instances and the masked one
+NORMWISE = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def normwise(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def stable_stages(device, horizon, n, m, dtype, seed=0):
+    """Random stages whose recursion stays bounded at any horizon (A contracts: radius about 0.9)."""
+    rng = np.random.default_rng(seed)
+
+    def spd(d):
+        g = rng.standard_normal((horizon, d, d))
+        return g @ np.swapaxes(g, -1, -2) / d + np.eye(d)
+
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device=device, dtype=dtype)
+    a = 0.8 * np.eye(n) + 0.1 * rng.standard_normal((horizon, n, n)) / np.sqrt(n)
+    exp = (rng.standard_normal((horizon, n)), rng.standard_normal((horizon, m)), spd(n), spd(m),
+           0.1 * rng.standard_normal((horizon, m, n)))
+    g = rng.standard_normal((n, n))
+    return (t(a), t(0.1 * rng.standard_normal((horizon, n, m))), CostExpansion(*(t(e) for e in exp)),
+            t(rng.standard_normal(n)), t(g @ g.T / n + np.eye(n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("horizon", sorted({1, 2, RING_DEPTH - 1, RING_DEPTH, RING_DEPTH + 1, 100, 1024}))
+@pytest.mark.parametrize("n, m", STEP_SHAPES)
+def test_k1_step_edges_match_plain(cuda_device, n, m, horizon, dtype):
+    """Each instance of the step, at horizons shorter than, equal to and longer than the stage ring."""
+    data = stable_stages(cuda_device, horizon, n, m, dtype, seed=n * 100 + m * 10 + horizon)
+    _build.reset_launches()
+    out = fused_riccati.riccati_backward_fused_single(*data, 1e-6)
+    torch.cuda.synchronize()
+    assert _build.launches[fused_riccati.KERNEL] == 1
+    ref = fused_riccati.riccati_backward_fused_single_plain(*data, 1e-6)
+    for name, o, r in zip(("k", "K", "V_x", "V_xx"), out, ref):
+        assert bool(torch.isfinite(o).all()), name
+        assert normwise(o, r) <= NORMWISE[dtype], name
 
 
 @pytest.mark.cuda
@@ -169,6 +216,36 @@ def test_k3_on_card_matches_plain(cuda_device, plant, horizon, tol, max_iter):
     _close_all((rx, ru, rbig_k, rstats[0, 0]), (x, u, big_k, stats[0, 0]))
     scale = max(float(ru.abs().max()), float(rk.abs().max()), 1.0)
     assert float((k - rk).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "plant, horizon, dtype",
+    # Horizons past what K3 stages at once in 64 KB (quadrotor: 120 float64 / 240 float32 steps;
+    # cart-pole: 819 float64 steps), so the rollouts stream the trajectory in three chunks.
+    [("quadrotor", 130, torch.float64), ("quadrotor", 250, torch.float32), ("cartpole", 900, torch.float64)],
+)
+def test_k3_staging_in_chunks_matches_plain(cuda_device, plant, horizon, dtype):
+    dyn, cost, fcost, x0, u0 = solve_problem(cuda_device, plant, horizon)
+    if dtype != torch.float64:
+        cost = make_quadratic_cost(cost.q_mat.to(dtype), cost.r_mat.to(dtype), cost.x_ref.to(dtype),
+                                   barrier_alpha=cost.barrier_alpha, barrier_beta=cost.barrier_beta)
+        fcost = make_quadratic_final_cost(fcost.qf_mat.to(dtype), fcost.x_ref.to(dtype))
+        x0, u0 = x0.to(dtype), u0.to(dtype)
+    x_init = simulate(dyn, x0, u0)
+    cost_init = trajectory_cost(cost, fcost, x_init, u0)
+    args = (dyn, cost, fcost, x_init, u0, cost_init, 2, 0.0, 1e-6, (1.0, 0.5, 0.25, 0.1, 0.05, 0.01))
+    _build.reset_launches()
+    x, u, k, big_k, stats = fused_solve.fused_ilqr_solve_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[fused_solve.KERNEL] == 1
+    rx, ru, rk, rbig_k, rstats = fused_solve.fused_ilqr_solve_kernel_plain(*args)
+    assert stats[0, 1:].tolist() == rstats[0, 1:].tolist() == [2.0, 0.0]
+    bound = 1e-9 if dtype == torch.float64 else NORMWISE[dtype]
+    for name, o, r in (("x", x, rx), ("u", u, ru), ("K", big_k, rbig_k), ("cost", stats[0, :1], rstats[0, :1])):
+        assert normwise(o, r) <= bound, name
+    scale = max(float(ru.abs().max()), float(rk.abs().max()), 1e-30)
+    assert float((k - rk).abs().max()) <= bound * scale
 
 
 @pytest.mark.cuda
@@ -266,6 +343,46 @@ def test_k4_lanes_are_k1_bit_for_bit(cuda_device):
         k1 = fused_riccati.riccati_backward_fused_single(a[lane], b_mat[lane], [e[lane] for e in exp], v_x[lane],
                                                          v_xx[lane], 1e-6)
         assert torch.equal(k1[0], k[lane]) and torch.equal(k1[1], big_k[lane])
+
+
+def batched_step_stages(device, batch, horizon, n, m, dtype=torch.float64, seed=20):
+    lanes = [stable_stages(device, horizon, n, m, dtype, seed=seed + b) for b in range(batch)]
+    a, b_mat, v_x, v_xx = (torch.stack([lane[i] for lane in lanes]) for i in (0, 1, 3, 4))
+    exp = CostExpansion(*(torch.stack([lane[2][i] for lane in lanes]) for i in range(5)))
+    return a, b_mat, exp, v_x, v_xx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", sorted({1, 2, RING_DEPTH - 1, RING_DEPTH, RING_DEPTH + 1, 50}))
+@pytest.mark.parametrize("n, m", [(12, 4), (4, 1), (7, 3)])
+def test_k4_lanes_are_k1_bit_for_bit_at_each_instance(cuda_device, n, m, horizon):
+    """K4 and K1 dispatch (n, m) to the same instance of the step: every lane equals K1 exactly."""
+    a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, 3, horizon, n, m)
+    k, big_k = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6)
+    for lane in range(3):
+        k1 = fused_riccati.riccati_backward_fused_single(a[lane], b_mat[lane], [e[lane] for e in exp], v_x[lane],
+                                                         v_xx[lane], 1e-6)
+        assert torch.equal(k1[0], k[lane]) and torch.equal(k1[1], big_k[lane])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [None, torch.bfloat16], ids=["carry", "bf16"])
+@pytest.mark.parametrize("n, m", [(12, 4), (4, 1)])
+def test_k4_packed_reader_matches_plain(cuda_device, n, m, stream):
+    """The packed layout (tile_s=1, h_pad=8) through the ring, in the carry type and as bfloat16:
+    equal to the natural layout bit for bit and to the plain form on the same rounded inputs."""
+    a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, 128, 5, n, m, dtype=torch.float32)
+    natural = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6, stream_dtype=stream)
+    packed = fused_riccati.pack_stages((a, b_mat, exp.l_xx, exp.l_uu, exp.l_ux, exp.l_x, exp.l_u), 1, 8)
+    _build.reset_launches()
+    out = fused_riccati.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=1,
+                                                         stream_dtype=stream, packed_stage=packed, horizon=5)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: 1}
+    assert all(torch.equal(o, r) for o, r in zip(out, natural))
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6, stream)
+    for o, r in zip(out, ref):
+        assert normwise(o, r) <= NORMWISE[torch.float32]
 
 
 @pytest.mark.cuda
