@@ -15,6 +15,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    H=100, A=6, and cart-pole RK4, H=30, float64 and float32; and as the
    megakernel path uses it, the initial rollout of a warm start (one
    candidate, zero gains; quadrotor H=50, cart-pole H=30) against ``simulate``.
+   Timed in float32 at H=50, 100 and 1,024: the call, and the device time
+   queued behind a sleep kernel, per step beside the bound per step.
 4. The bench problem (quadrotor RK4 hover, H=100, 6 forced iterations)
    through K1 + K2, held to the same solve with riccati="seq",
    linesearch="xla"; iterations/s of both.
@@ -49,7 +51,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    within 5e-2 of float32); K5 (B=2048, tile_s=8) against its plain form on
    the packed tensors, and K5 -> K4 (packed) against K4 on the unpacked
    stages (bit for bit); K6 and K7 (A=6) against their plain form and lane
-   by lane against K2 (bit for bit).
+   by lane against K2 (bit for bit), timed in float32 at B=512 and 2048 (the
+   call, and the device time queued behind a sleep kernel).
 9. ``batched_ilqr_solve`` at the suite's problem (x0 z in [0.2, 0.5], zero
    controls, 4 forced iterations): backends "fused" (PyTorch line search, and
    linesearch="fused" through K7), "fused_bf16" and "vmap", float32 at
@@ -169,6 +172,8 @@ K9_SHAPES = ((1024, torch.float32), (131072, torch.float32), (1024, torch.float6
 K9_MAIN = (1024, torch.float64)
 # K1 timed at the bench stages' H=50 and 100 and at the suite's random LQ problem's H=1,024.
 K1_TIMED = (50, 100, 1024)
+# K2 timed at the bench stages' H=50 and 100 and at H=1,024 (hover_stages: no eager loop over the horizon).
+K2_TIMED = (50, 100, 1024)
 # The associative Riccati form against K1: JAX's tolerance for the two forms,
 # which place reg differently (tests/test_riccati.py:110-113).
 ASSOC_K1_RTOL, ASSOC_K1_ATOL = 1e-3, 1e-6
@@ -449,6 +454,53 @@ def phase_k2(report):
             log(f"K2 as the initial rollout, {label} {dtype}: rel err {err:.3e} against simulate (bound {bound})")
             if not (np.isfinite(err) and err <= bound):
                 raise AssertionError(f"K2's initial rollout disagrees with simulate ({label}, {dtype}): {err}")
+    return k2_timing(torch.float32)
+
+
+def hover_stages(dtype, horizon):
+    """K2's inputs at any horizon without an eager loop over it: the bench problem from hover controls, its
+    open-loop trajectory by one K2 launch (the megakernel path's initial rollout) and its first backward pass
+    by one K1 launch, both in float64 and then cast (in float32 that pass overflows over 1,024 steps)."""
+    from quattro_tpu_torch.solver import (
+        RiccatiResult, linearize_dynamics, quadratize_cost, quadratize_final_cost, riccati_backward_fused,
+    )
+    from quattro_tpu_torch.solver.ilqr import _initial_rollout
+
+    dyn, cost, fcost, x0, u0 = bench_problem(torch.float64, horizon)
+    u = u0 + 2.4525
+    x_seq = _initial_rollout(dyn, x0, u)
+    a, b = linearize_dynamics(dyn, x_seq, u)
+    fin = quadratize_final_cost(fcost, x_seq[-1])
+    gains = riccati_backward_fused(a, b, quadratize_cost(cost, x_seq, u), fin.v_x, fin.v_xx, 1e-6)
+    cast = lambda t: t.to(dtype)
+    return dyn, cast(x0), cast(x_seq), cast(u), RiccatiResult(*(cast(t) for t in gains))
+
+
+def k2_timing(dtype):
+    """K2 (A=6) at the bench stages' H=50 and 100 and at H=1,024 (hover_stages): the public call's time and the
+    device time queued behind a sleep kernel, per step beside the bound per step. Each candidate is a chain of H
+    steps, so the time per step is what a redesign moves. The time depends on the data: on hover_stages' inputs
+    at H=100 it was 1.44 times the bench stages' (an H100), so each horizon keeps its inputs."""
+    from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts
+
+    timing = {}
+    for horizon in K2_TIMED:
+        if horizon == 1024:
+            dyn, x0, x_seq, u0, gains = hover_stages(dtype, horizon)
+        else:
+            dyn, _, x0, x_seq, u0, gains = bench_stages(dtype, horizon)
+        alphas = torch.tensor(ALPHAS, dtype=dtype, device=x0.device)
+        call = lambda: fused_feedback_rollouts(dyn, x0, x_seq, u0, gains.k_seq, gains.big_k_seq, alphas)
+        if not all(bool(torch.isfinite(o).all()) for o in call()):
+            raise AssertionError(f"K2 at H={horizon}: non-finite candidates")
+        call_ms = time_ms(call, 100)
+        dev_ms, queued = queued_ms(call, 10)
+        b_ms, b_by = bound_ms(k2_work(horizon, len(ALPHAS), dtype), dtype)
+        timing[horizon] = dict(call_ms=call_ms, queued_ms=dev_ms, queued=queued, us_per_step=1e3 * dev_ms / horizon,
+                               bound_us_per_step=1e3 * b_ms / horizon)
+        log(f"K2 float32 H={horizon} A=6: call {call_ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]}, "
+            f"{1e3 * dev_ms / horizon:.3f} us per step (bound {1e3 * b_ms / horizon:.2e} us per step, {b_by})")
+    return timing
 
 
 def k3_work(horizon, n, m, n_alpha, trips, field_flops, dtype):
@@ -708,10 +760,12 @@ def phase_k5(report):
 
 
 def phase_k67(report):
-    """K6 and K7 (one kernel) against their plain form, and lane-wise against K2."""
+    """K6 and K7 (one kernel) against their plain form, lane-wise against K2, and timed (call and queued device
+    time) at each batch in float32."""
     from quattro_tpu_torch.ops import fused_riccati as fr
     from quattro_tpu_torch.ops import fused_rollout as fro
 
+    timing = {}
     for batch in BATCHES:
         for dtype in (torch.float64, torch.float32):
             dyn, _, xs, us, (a, b, exp), v_x, v_xx = warm_batch(dtype, batch)
@@ -737,8 +791,10 @@ def phase_k67(report):
             for name, fn, line in ((K6, fro.fused_feedback_rollouts_batched2d, 150),
                                    (K7, fro.fused_feedback_rollouts_batched, 374)):
                 ms = time_ms(lambda: fn(*args), 50)
-                log(f"{name} float32 A=6 B={batch} H={BATCH_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-                    f"bound {b_ms:.2e} ms ({b_by})")
+                dev_ms, queued = queued_ms(lambda: fn(*args), 20)
+                timing.setdefault(batch, {})[name] = dict(call_ms=ms, queued_ms=dev_ms, queued=queued)
+                log(f"{name} float32 A=6 B={batch} H={BATCH_H}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms"
+                    f"{QUEUED[queued]}), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
                 if batch == BATCHES[-1]:
                     report[name] = dict(
                         name=name, route="cuda", source="quattro_tpu_torch/csrc/fused_rollout_batched.cu",
@@ -746,6 +802,7 @@ def phase_k67(report):
                         max_abs_err=max(float((o - r).abs().max()) for o, r in zip(outs[name], ref)),
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     )
+    return timing
 
 
 def k8_work(batch, m, r, dtype):
@@ -1464,11 +1521,11 @@ def main() -> int:
 
     report = {}
     k1_times = phase_k1(report)
-    phase_k2(report)
+    k2_times = phase_k2(report)
     k3_times = phase_k3(report)
     phase_k4(report)
     phase_k5(report)
-    phase_k67(report)
+    k67_times = phase_k67(report)
     phase_k9(report)
     phase_k8(report)
     batched = phase_batch(report)
@@ -1477,7 +1534,8 @@ def main() -> int:
     mpc, pure_xs = phase_mpc(report, root)
     mega = phase_megakernel(report)
     assoc = phase_assoc(report, pure_xs)
-    log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k3_timing": k3_times, "bench_iters_per_s": rates,
+    log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
+                                "k67_timing": k67_times, "bench_iters_per_s": rates,
                                 "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))

@@ -9,60 +9,27 @@
 // plants it does not know.
 //
 // What bounds it: H sequential steps per candidate, each a feedback product
-// (4 x 12 for the quadrotor) and four evaluations of the vector field (sin,
-// cos, tan, a divide) -- a latency chain of a few hundred dependent
-// instructions per step. The bytes (about 30 KB of inputs at H=100 in f32)
-// and the flops are negligible.
-// Design: one thread per candidate, the state in registers, the whole horizon
-// inside one launch; the thread's body is rollout_lane.cuh, which the batched
-// rollout kernel (K6/K7) shares. All candidates run the same instruction
-// stream, so the warp never diverges. No fast-math: tan and 1/cos(pitch) keep
-// full accuracy.
+// (4 x 12 for the quadrotor) and four evaluations of the vector field (three
+// sincos, a tan and a division each) -- a latency chain, not the data (about
+// 30 KB of inputs at H=100 in float32).
+// Design: the body of rollout_group.cuh, which the batched rollout kernel
+// (K6/K7) runs too: one group of G lanes per candidate (G = 4 for the
+// quadrotor, the field's transcendental work spread over the lanes; 1 for the
+// cart-pole), 32/G candidates per warp, the trajectory's steps staged in
+// shared memory by cp.async a chunk ahead of use. A above 32/G spreads over
+// several warps, each staging its own copy (up to four warps per CTA). This
+// is the batched kernel's launch at B = 1, so a batched candidate equals the
+// K2 candidate of its trajectory bit for bit. No fast-math.
 // Outputs are written candidate-major, the layout the caller returns.
 //
 // C interface (no PyTorch header; bound with ctypes). Contiguous device
-// arrays, n and m the plant's: x0 (n), x_ref (H+1,n) (first H rows read),
-// u_ref (H,m), k (H,m), big_k (H,m,n), alphas (A) -> cand_x (A,H+1,n),
-// cand_u (A,H,m). Returns 0 or the cudaError_t of the launch.
+// arrays, n and m the plant's: x0 (n), x_ref (H,n), u_ref (H,m), k (H,m),
+// big_k (H,m,n), alphas (A) -> cand_x (A,H+1,n), cand_u (A,H,m).
+// Returns 0 or the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 
-#include "rollout_lane.cuh"
-
-namespace {
-
-template <typename T, typename P>
-__global__ void rollout_kernel(int H, int n_alpha, int rk4, P plant, qt::StepSizes<T> h,
-                               const T* __restrict__ x0,
-                               const T* __restrict__ x_ref,
-                               const T* __restrict__ u_ref,
-                               const T* __restrict__ k,
-                               const T* __restrict__ big_k,
-                               const T* __restrict__ alphas,
-                               T* __restrict__ cand_x,
-                               T* __restrict__ cand_u) {
-  const int c = threadIdx.x;
-  if (c >= n_alpha) return;
-  qt::rollout_lane(plant, rk4, h, H, alphas[c], x0, x_ref, u_ref, k, big_k,
-                   cand_x + (size_t)c * (H + 1) * P::N, cand_u + (size_t)c * H * P::M);
-}
-
-template <typename T, template <typename> class Plant>
-int launch(int H, int n_alpha, int rk4, const double* params, double dt,
-           const void* x0, const void* x_ref, const void* u_ref, const void* k,
-           const void* big_k, const void* alphas, void* cand_x, void* cand_u,
-           cudaStream_t stream) {
-  const int threads = ((n_alpha + 31) / 32) * 32;
-  rollout_kernel<T, Plant<T>><<<1, threads, 0, stream>>>(
-      H, n_alpha, rk4, Plant<T>::from(params), qt::StepSizes<T>::from(dt),
-      static_cast<const T*>(x0), static_cast<const T*>(x_ref), static_cast<const T*>(u_ref),
-      static_cast<const T*>(k), static_cast<const T*>(big_k),
-      static_cast<const T*>(alphas), static_cast<T*>(cand_x),
-      static_cast<T*>(cand_u));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "rollout_group.cuh"
 
 // dtype: 0 = float32, 1 = float64. plant: 0 = quadrotor (n=12, m=4; params
 // mass, inertia_x, inertia_y, inertia_z, arm, gravity, k_yaw), 1 = cart-pole
@@ -76,8 +43,9 @@ extern "C" int qt_fused_rollout(
   if (H < 0 || n_alpha < 1 || n_alpha > 1024 || dtype < 0 || dtype > 1 || plant < 0 || plant > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_LAUNCH(T, Plant) \
-  launch<T, Plant>(H, n_alpha, rk4, params, dt, x0, x_ref, u_ref, k, big_k, alphas, cand_x, cand_u, s)
+#define QT_LAUNCH(T, Plant)                                                                                  \
+  qt::launch_group_rollouts<T, Plant>(1, H, n_alpha, H, rk4, params, dt, x0, x_ref, u_ref, k, big_k, alphas, \
+                                      cand_x, cand_u, s)
   if (plant == 0) return dtype == 0 ? QT_LAUNCH(float, qt::Quadrotor) : QT_LAUNCH(double, qt::Quadrotor);
   return dtype == 0 ? QT_LAUNCH(float, qt::CartPole) : QT_LAUNCH(double, qt::CartPole);
 #undef QT_LAUNCH

@@ -9,9 +9,11 @@ trajectory, returning ``(cand_x (A, H+1, n), cand_u (A, H, m))``;
 ``fused_feedback_rollouts_batched`` (K7) and
 ``fused_feedback_rollouts_batched2d`` (K6) roll out a batch, returning
 ``(A, B, H+1, n), (A, B, H, m)``. K6 and K7 are one function in two TPU lane
-layouts, so both launch one kernel here (``csrc/fused_rollout_batched.cu``),
-whose every lane runs K2's per-thread body; each entry point keeps its own
-launch count.
+layouts, so both launch one kernel here (``csrc/fused_rollout_batched.cu``).
+K2 and it run one body (``csrc/rollout_group.cuh``): a group of lanes per
+candidate, one warp per trajectory, the trajectory's steps staged in shared
+memory; so each batched candidate equals K2's on its trajectory bit for bit.
+Each entry point keeps its own launch count.
 
 The TPU kernels trace the user's dynamics into their bodies. A CUDA kernel
 cannot, so the kernels carry the plants they know (quadrotor and cart-pole,
@@ -223,6 +225,6 @@ def fused_feedback_rollouts_batched2d(
     On the TPU it packs the (alpha, batch) pairs onto sublanes and lanes; its
     ``interpret``, ``tile_s``, ``block_t`` and ``max_resident`` size VMEM
     tiles and change no result, and are not carried over. Here it launches
-    the same kernel, one thread per (alpha, trajectory) pair.
+    the same kernel, one group of lanes per (alpha, trajectory) pair.
     """
     return _rollouts_batched(BATCHED2D_KERNEL, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)

@@ -153,6 +153,48 @@ def test_k2_cartpole_on_card_matches_plain(cuda_device, method):
     _close_all(fused_rollout.fused_feedback_rollouts_plain(dyn, *inputs), out)
 
 
+GROUP_WIDTH = {"quadrotor": 4, "cartpole": 1}  # lanes per candidate in csrc/rollout_group.cuh
+
+
+def group_rollout_inputs(device, plant, horizon, n_alpha, dtype, seed=0):
+    """Seeded K2 inputs whose rollouts stay bounded at any horizon: the quadrotor near hover, the cart-pole near
+    theta = 0, where its field pulls the pole back (started near theta = pi the pole turns over within a
+    second, and float32 rounding alone then moves the plain form 2e-4 from float64); A step sizes from 1 down
+    to 1e-3."""
+    rng = np.random.default_rng(seed)
+    n, m = (12, 4) if plant == "quadrotor" else (4, 1)
+    values = (0.1 * rng.standard_normal(n), 0.1 * rng.standard_normal((horizon + 1, n)),
+              (2.4525 if plant == "quadrotor" else 0.0) + 0.1 * rng.standard_normal((horizon, m)),
+              0.05 * rng.standard_normal((horizon, m)), 0.05 * rng.standard_normal((horizon, m, n)),
+              np.geomspace(1.0, 1e-3, n_alpha) if n_alpha > 1 else np.ones(1))
+    return [torch.from_numpy(v).to(device=device, dtype=dtype) for v in values]
+
+
+def group_dynamics(plant, method="rk4"):
+    return make_discrete(QuadrotorField() if plant == "quadrotor" else CartPoleField(), 0.01, method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("horizon", [1, 100, 257])
+@pytest.mark.parametrize("n_alpha", ["1", "5", "6", "7", "8G+1", "300"])
+@pytest.mark.parametrize("plant", ["quadrotor", "cartpole"])
+def test_k2_group_edges_match_plain(cuda_device, plant, n_alpha, horizon, dtype):
+    """Idle groups in a warp (A = 1, 5, 6, 7), several warps and CTAs (8 G + 1, 300), one step, and horizons
+    that end inside and on the edge of a staged chunk; normwise against the plain form."""
+    n_alpha = 8 * GROUP_WIDTH[plant] + 1 if n_alpha == "8G+1" else int(n_alpha)
+    inputs = group_rollout_inputs(cuda_device, plant, horizon, n_alpha, dtype, seed=horizon + n_alpha)
+    dyn = group_dynamics(plant)
+    _build.reset_launches()
+    out = fused_rollout.fused_feedback_rollouts(dyn, *inputs)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_rollout.KERNEL: 1}
+    ref = fused_rollout.fused_feedback_rollouts_plain(dyn, *inputs)
+    for name, o, r in zip(("cand_x", "cand_u"), out, ref):
+        assert o.shape == r.shape and bool(torch.isfinite(o).all()), name
+        assert normwise(o, r) <= NORMWISE[dtype], name
+
+
 @pytest.mark.cuda
 def test_k2_on_card_refuses_an_unknown_plant(cuda_device):
     dyn = make_discrete(lambda x, u: quadrotor_dynamics(x, u), 0.01, "rk4")
@@ -462,6 +504,26 @@ def test_k6_k7_on_card_match_plain_and_k2(cuda_device, entry):
     for lane in range(5):  # each lane runs K2's per-thread body
         k2 = fused_rollout.fused_feedback_rollouts(dyn, *(x[lane] for x in inputs[:5]), inputs[5])
         assert torch.equal(k2[0], out[0][:, lane]) and torch.equal(k2[1], out[1][:, lane])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, n_alpha", [(1, 6), (3, 9), (2049, 6)])
+@pytest.mark.parametrize("plant", ["quadrotor", "cartpole"])
+def test_k6_k7_group_lanes_are_k2_bit_for_bit(cuda_device, plant, batch, n_alpha):
+    """One warp per trajectory (two for the quadrotor at A = 9), H = 20 over three staged chunks: against the
+    plain form, and the first, middle and last trajectories equal K2 on them bit for bit."""
+    lanes = [group_rollout_inputs(cuda_device, plant, 20, n_alpha, torch.float64, seed=b) for b in range(batch)]
+    inputs = [torch.stack([lane[i] for lane in lanes]) for i in range(5)] + [lanes[0][5]]
+    dyn = group_dynamics(plant)
+    for entry, name in (("batched", fused_rollout.BATCHED_KERNEL), ("batched2d", fused_rollout.BATCHED2D_KERNEL)):
+        _build.reset_launches()
+        out = getattr(fused_rollout, f"fused_feedback_rollouts_{entry}")(dyn, *inputs)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {name: 1}
+        _close_all(fused_rollout.fused_feedback_rollouts_batched_plain(dyn, *inputs), out)
+        for lane in sorted({0, batch // 2, batch - 1}):
+            k2 = fused_rollout.fused_feedback_rollouts(dyn, *(x[lane] for x in inputs[:5]), inputs[5])
+            assert torch.equal(k2[0], out[0][:, lane]) and torch.equal(k2[1], out[1][:, lane]), (entry, lane)
 
 
 @pytest.mark.cuda
