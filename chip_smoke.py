@@ -52,7 +52,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the packed tensors, and K5 -> K4 (packed) against K4 on the unpacked
    stages (bit for bit); K6 and K7 (A=6) against their plain form and lane
    by lane against K2 (bit for bit), timed in float32 at B=512 and 2048 (the
-   call, and the device time queued behind a sleep kernel).
+   call, and the device time queued behind a sleep kernel). K4 is timed on its
+   natural, packed and bf16 inputs (its kernels-line entry carries all three,
+   and the device time on contiguous natural stages: the natural call copies
+   the strided stages of vmap's Jacobians first), K5 in float32 and float64.
 9. ``batched_ilqr_solve`` at the suite's problem (x0 z in [0.2, 0.5], zero
    controls, 4 forced iterations): backends "fused" (PyTorch line search, and
    linesearch="fused" through K7), "fused_bf16" and "vmap", float32 at
@@ -61,7 +64,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    flags, cost rtol 1e-9, u atol 1e-8); solves/s of a warm call each.
 10. One fully fused batched trip through public entry points, K5 -> K4
    (packed) -> ``line_search_batched2d`` (K6), held to the "fused" backend's
-   first trip, with the device idle share of that trip.
+   first trip, with the device idle share of that trip and the summed device
+   time of its three kernels (each queued behind a sleep kernel).
 11. K8 (batched SPD solve, run after phase 8) against its plain form at
    ``benchmarks/suite.py``'s shapes (m=4, r=13, B=301, 65,536 and 1,048,576;
    float64 at 65,536) and the main path's widest launch (102,400 systems,
@@ -711,16 +715,21 @@ def phase_k4(report):
             ms = time_ms(runs["column"], 50)
             ms_packed = time_ms(runs["packed"], 50)
             ms16 = time_ms(lambda: fr.riccati_backward_batched_fused(*args, stream_dtype=torch.bfloat16), 50)
+            # The kernel alone: the natural call copies the strided stage tensors of vmap's Jacobians first.
+            dense = [x.contiguous() for x in (a, b)] + [CostExpansion(*(e.contiguous() for e in exp))]
+            dev_ms, queued = queued_ms(lambda: fr.riccati_backward_batched_fused(*dense, v_x, v_xx, 1e-6), 20)
             plain_ms = time_ms(lambda: fr.riccati_backward_batched_fused_plain(*args), 1)
             b_ms, b_by = bound_ms(k4_work(batch, BATCH_H, 12, 4, dtype), dtype)
             log(f"K4 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms (packed input {ms_packed:.4f}, bf16 stream "
-                f"{ms16:.4f}), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
+                f"{ms16:.4f}; contiguous natural input, device {dev_ms:.4f}{QUEUED[queued]}), plain {plain_ms:.1f} ms, "
+                f"bound {b_ms:.2e} ms ({b_by})")
             if batch == BATCHES[-1]:
                 report[K4] = dict(
                     name=K4, route="cuda", source="quattro_tpu_torch/csrc/fused_riccati_batched.cu",
                     replaces="quattro_tpu/ops/fused_riccati.py:59", launches=0,
                     max_abs_err=max(float((o - r).abs().max()) for o, r in zip(outs["column"], ref)),
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    packed_ms=ms_packed, bf16_ms=ms16, contiguous_device_ms=dev_ms,
                 )
 
 
@@ -745,6 +754,9 @@ def phase_k5(report):
         if not all(torch.equal(c, d) for c, d in zip(chain, direct)):
             raise AssertionError(f"K5 -> K4 (packed) differs from K4 on the unpacked stages ({dtype})")
         log(f"K5 -> K4 B={batch} {dtype}: gains equal K4 on the unpacked stages bit for bit")
+        if dtype == torch.float64:
+            log(f"K5 float64 B={batch} H={BATCH_H}: kernel "
+                f"{time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S), 50):.4f} ms")
         if dtype == torch.float32:
             ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S), 50)
             plain_ms = time_ms(lambda: linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=K5_TILE_S), 1)
@@ -1239,6 +1251,7 @@ def phase_batch_trip(report):
 
     from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused
     from quattro_tpu_torch.ops.fused_riccati import riccati_backward_batched_fused2d
+    from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts_batched2d
     from quattro_tpu_torch.parallel import batched_ilqr_solve
     from quattro_tpu_torch.solver import (
         ILQRConfig, line_search_batched2d, quadratize_final_cost, simulate, trajectory_cost,
@@ -1260,6 +1273,22 @@ def phase_batch_trip(report):
     (found, _, new_x, _, new_cost), counts = counted((K4, K5, K6), report, trip)
     ref = batched_ilqr_solve(dyn, cost, fcost, x0, u0, ILQRConfig(tol=0.0, max_iter=1), riccati_backend="fused")
     cost_rel = float(((new_cost - ref.cost).abs() / ref.cost.abs()).max())
+    # The trip's device time: each of its three kernel calls queued behind a sleep kernel on the trip's inputs.
+    packed = linquad_batched_fused(dyn, cost, xs, u0, tile_s=K5_TILE_S)
+    fin = vmap(functools.partial(quadratize_final_cost, fcost))(xs[:, -1])
+    k, big_k = riccati_backward_batched_fused2d(None, None, None, fin.v_x, fin.v_xx, 1e-6, tile_s=K5_TILE_S,
+                                                packed_stage=packed, horizon=BATCH_H)
+    kernel_ms = {
+        K5: queued_ms(lambda: linquad_batched_fused(dyn, cost, xs, u0, tile_s=K5_TILE_S), 20),
+        K4: queued_ms(lambda: riccati_backward_batched_fused2d(None, None, None, fin.v_x, fin.v_xx, 1e-6,
+                                                               tile_s=K5_TILE_S, packed_stage=packed,
+                                                               horizon=BATCH_H), 20),
+        K6: queued_ms(lambda: fused_feedback_rollouts_batched2d(dyn, x0, xs, u0, k, big_k, alphas), 20),
+    }
+    device_ms = sum(v[0] for v in kernel_ms.values())
+    log(f"fused batched trip B={batch}: device time of its kernels "
+        + ", ".join(f"{name} {v[0]:.4f} ms{QUEUED[v[1]]}" for name, v in kernel_ms.items())
+        + f"; sum {device_ms:.4f} ms")
     trip_ms = wall_ms(trip)
     idle = idle_share(trip)
     one_trip = ILQRConfig(tol=0.0, max_iter=1, linesearch="fused")
@@ -1270,7 +1299,8 @@ def phase_batch_trip(report):
         f"idle share {solve_idle}")
     if counts != {K4: 1, K5: 1, K6: 1} or not (torch.isfinite(new_x).all() and cost_rel <= F32_SOLVE_COST_REL):
         raise AssertionError(f"fused batched trip: launches {counts}, cost rel {cost_rel}")
-    return dict(trip_ms=trip_ms, idle_share=idle, one_trip_solve_idle_share=solve_idle, cost_rel=cost_rel)
+    return dict(trip_ms=trip_ms, idle_share=idle, one_trip_solve_idle_share=solve_idle, cost_rel=cost_rel,
+                device_ms=device_ms, kernel_device_ms={name: v[0] for name, v in kernel_ms.items()})
 
 
 def wall_ms(fn, reps=2):

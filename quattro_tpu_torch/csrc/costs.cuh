@@ -39,6 +39,16 @@ QT_HD void softplus_terms(T z, T beta, T* value, T* s, T* sc) {
   }
 }
 
+// The barrier alpha * softplus(-u, beta)^2 differentiated in u:
+// grad = alpha * (-2 sp s), hess = alpha * 2 (s^2 + sp beta s (1 - s)).
+template <typename T>
+QT_HD void barrier_derivatives(T u, T alpha, T beta, T* grad, T* hess) {
+  T sp, s, sc;
+  softplus_terms(-u, beta, &sp, &s, &sc);
+  *grad = alpha * (T(-2) * sp * s);
+  *hess = alpha * (T(2) * (s * s + sp * (beta * s * sc)));
+}
+
 // sum_i v_i (sum_j w[i][j] v_j) for a row-major n x n weight.
 template <int N, typename T>
 QT_HD T quadratic_form(const T* w, const T* v) {
@@ -109,10 +119,10 @@ QT_HD void running_cost_expansion(const T* q, const T* r, const T* x_ref, T alph
     // b(u) = sum_j sp(-u_j)^2:  db/du_j = -2 sp s,  d2b/du_j^2 = 2 (s^2 + sp beta s (1 - s)).
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      T sp, s, sc;
-      softplus_terms(-u[j], beta, &sp, &s, &sc);
-      l_u[j] += alpha * (T(-2) * sp * s);
-      l_uu[j * M + j] += alpha * (T(2) * (s * s + sp * (beta * s * sc)));
+      T grad, hess;
+      barrier_derivatives(u[j], alpha, beta, &grad, &hess);
+      l_u[j] += grad;
+      l_uu[j * M + j] += hess;
     }
   }
 #pragma unroll

@@ -1,7 +1,8 @@
 // Host build of plants.cuh and costs.cuh behind a plain C interface.
 //
 // The kernels' plant and cost derivatives are written by hand (dual-number
-// Jacobians, analytic cost expansion). They are host-and-device code, so a
+// Jacobians, K5's value pass plus tangent-only columns, analytic cost
+// expansion). They are host-and-device code, so a
 // host compiler can build them into this small library and a CPU test can
 // hold them against autodiff without a GPU. float64 only; plant: 0 =
 // quadrotor, 1 = cart-pole; params as in the kernels' entry points.
@@ -22,6 +23,27 @@ void step_and_jacobian(const double* params, int rk4, double dt, const double* x
   double col[N];
   for (int d = 0; d < N + M; ++d) {
     qt::discrete_step_jacobian_column(plant, rk4, h, x, u, d, col);
+    for (int i = 0; i < N; ++i) {
+      if (d < N)
+        a[i * N + d] = col[i];
+      else
+        b[i * M + (d - N)] = col[i];
+    }
+  }
+}
+
+template <typename P>
+void tangent_jacobian(const double* params, int rk4, double dt, const double* x, const double* u, double* a,
+                      double* b) {
+  constexpr int N = P::N;
+  constexpr int M = P::M;
+  const P plant = P::from(params);
+  const auto h = qt::StepSizes<double>::from(dt);
+  typename qt::PointOf<P>::type pts[4];
+  qt::discrete_step_points(plant, rk4, h, x, u, pts);
+  double col[N];
+  for (int d = 0; d < N + M; ++d) {
+    qt::discrete_step_tangent_column(plant, rk4, h, pts, d, col);
     for (int i = 0; i < N; ++i) {
       if (d < N)
         a[i * N + d] = col[i];
@@ -54,6 +76,21 @@ extern "C" int qt_host_step_and_jacobian(int plant, const double* params, int rk
   }
   if (plant == 1) {
     step_and_jacobian<qt::CartPole<double>>(params, rk4, dt, x, u, x_next, a, b);
+    return 0;
+  }
+  return 1;
+}
+
+// a (n,n), b (n,m) of the discrete step at (x, u) as K5 computes them: one
+// value pass, then tangent-only columns. Returns 0, or 1 for an unknown plant.
+extern "C" int qt_host_step_tangent_jacobian(int plant, const double* params, int rk4, double dt,
+                                             const double* x, const double* u, double* a, double* b) {
+  if (plant == 0) {
+    tangent_jacobian<qt::Quadrotor<double>>(params, rk4, dt, x, u, a, b);
+    return 0;
+  }
+  if (plant == 1) {
+    tangent_jacobian<qt::CartPole<double>>(params, rk4, dt, x, u, a, b);
     return 0;
   }
   return 1;

@@ -201,4 +201,193 @@ QT_HD void discrete_step_jacobian_column(const P& plant, int rk4, const StepSize
   for (int i = 0; i < N; ++i) col[i] = xn[i].d;
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobian of the step as one value pass plus tangent-only columns (K5).
+//
+// discrete_step_jacobian_column runs the whole step on Dual<T> for every
+// column, so the value part (the trig, tan and the quotients of four field
+// evaluations) is computed N + M times per point. Here discrete_step_points
+// runs the step once on T and keeps, for each field evaluation, the values
+// its derivative needs (a *Point); discrete_step_tangent_column then carries
+// one tangent through the same integrator with field_tangent, which is the
+// derivative part of the dual-number field written on those saved values:
+// no trig, and 1/cos(pitch) (the quadrotor) and 1/den (the cart-pole) taken
+// once per evaluation. Constant quotients of the plant's parameters are
+// loop-invariant, so a caller's loop over columns takes them once. The
+// rounding may differ from the dual form's by the order of a few operations;
+// csrc/host_derivatives.cpp lets a CPU test hold it against jax.jacfwd.
+
+template <typename T>
+struct QuadrotorPoint {
+  T tm, sr, cr, sp, cp, sy, cy, tp, inv_cp, f8, pr, qr, rr;
+};
+
+template <typename T>
+struct CartPolePoint {
+  T s, c, thd, temp, den, thdd;
+};
+
+template <typename P>
+struct PointOf;
+template <typename T>
+struct PointOf<Quadrotor<T>> {
+  using type = QuadrotorPoint<T>;
+};
+template <typename T>
+struct PointOf<CartPole<T>> {
+  using type = CartPolePoint<T>;
+};
+
+// The quadrotor's field at (x, u) (Quadrotor::field's expressions), keeping pt.
+template <typename T>
+QT_HD void field_point(const Quadrotor<T>& q, const T* x, const T* u, T* dx, QuadrotorPoint<T>& pt) {
+  const T roll = x[6], pitch = x[7], yaw = x[8];
+  pt.pr = x[9], pt.qr = x[10], pt.rr = x[11];
+  const T thrust = ((u[0] + u[1]) + u[2]) + u[3];
+  pt.cr = cos_t(roll), pt.sr = sin_t(roll);
+  pt.cp = cos_t(pitch), pt.sp = sin_t(pitch);
+  pt.cy = cos_t(yaw), pt.sy = sin_t(yaw);
+  pt.tm = thrust / q.mass;
+  dx[0] = x[3];
+  dx[1] = x[4];
+  dx[2] = x[5];
+  dx[3] = pt.tm * (pt.sy * pt.sr + pt.cy * pt.sp * pt.cr);
+  dx[4] = pt.tm * (pt.cy * pt.sr - pt.sy * pt.sp * pt.cr);
+  dx[5] = -q.gravity + pt.tm * (pt.cp * pt.cr);
+  pt.tp = tan_t(pitch);
+  dx[6] = pt.pr + pt.qr * pt.sr * pt.tp + pt.rr * pt.cr * pt.tp;
+  dx[7] = pt.qr * pt.cr - pt.rr * pt.sr;
+  pt.f8 = (pt.qr * pt.sr + pt.rr * pt.cr) / pt.cp;
+  pt.inv_cp = T(1) / pt.cp;
+  dx[8] = pt.f8;
+  const T tau_roll = q.arm * ((u[1] + u[2]) - (u[0] + u[3]));
+  const T tau_pitch = q.arm * ((u[0] + u[1]) - (u[2] + u[3]));
+  const T tau_yaw = q.k_yaw * (u[0] - u[1] + u[2] - u[3]);
+  dx[9] = ((q.iy - q.iz) / q.ix) * pt.qr * pt.rr + tau_roll / q.ix;
+  dx[10] = ((q.iz - q.ix) / q.iy) * pt.pr * pt.rr + tau_pitch / q.iy;
+  dx[11] = ((q.ix - q.iy) / q.iz) * pt.pr * pt.qr + tau_yaw / q.iz;
+}
+
+// d field at the point pt along (tx, tu).
+template <typename T>
+QT_HD void field_tangent(const Quadrotor<T>& q, const QuadrotorPoint<T>& p, const T* tx, const T* tu, T* out) {
+  const T dro = tx[6], dpi = tx[7], dya = tx[8], dpr = tx[9], dqr = tx[10], drr = tx[11];
+  const T dtm = (((tu[0] + tu[1]) + tu[2]) + tu[3]) * (T(1) / q.mass);
+  const T dcr = -p.sr * dro, dsr = p.cr * dro;
+  const T dcp = -p.sp * dpi, dsp = p.cp * dpi;
+  const T dcy = -p.sy * dya, dsy = p.cy * dya;
+  out[0] = tx[3];
+  out[1] = tx[4];
+  out[2] = tx[5];
+  const T cysp = p.cy * p.sp, sysp = p.sy * p.sp;
+  const T dcysp = dcy * p.sp + p.cy * dsp, dsysp = dsy * p.sp + p.sy * dsp;
+  const T e3 = p.sy * p.sr + cysp * p.cr, e4 = p.cy * p.sr - sysp * p.cr, e5 = p.cp * p.cr;
+  out[3] = dtm * e3 + p.tm * ((dsy * p.sr + p.sy * dsr) + (dcysp * p.cr + cysp * dcr));
+  out[4] = dtm * e4 + p.tm * ((dcy * p.sr + p.cy * dsr) - (dsysp * p.cr + sysp * dcr));
+  out[5] = dtm * e5 + p.tm * (dcp * p.cr + p.cp * dcr);
+  const T dtp = (T(1) + p.tp * p.tp) * dpi;
+  const T qs = p.qr * p.sr, rc = p.rr * p.cr;
+  const T dqs = dqr * p.sr + p.qr * dsr, drc = drr * p.cr + p.rr * dcr;
+  out[6] = dpr + (dqs * p.tp + qs * dtp) + (drc * p.tp + rc * dtp);
+  out[7] = (dqr * p.cr + p.qr * dcr) - (drr * p.sr + p.rr * dsr);
+  out[8] = ((dqs + drc) - p.f8 * dcp) * p.inv_cp;
+  out[9] = ((q.iy - q.iz) / q.ix) * (dqr * p.rr + p.qr * drr) + (q.arm / q.ix) * ((tu[1] + tu[2]) - (tu[0] + tu[3]));
+  out[10] = ((q.iz - q.ix) / q.iy) * (dpr * p.rr + p.pr * drr) + (q.arm / q.iy) * ((tu[0] + tu[1]) - (tu[2] + tu[3]));
+  out[11] = ((q.ix - q.iy) / q.iz) * (dpr * p.qr + p.pr * dqr) + (q.k_yaw / q.iz) * (tu[0] - tu[1] + tu[2] - tu[3]);
+}
+
+// The cart-pole's field at (x, u) (CartPole::field's expressions), keeping pt.
+template <typename T>
+QT_HD void field_point(const CartPole<T>& c, const T* x, const T* u, T* dx, CartPolePoint<T>& pt) {
+  const T m_total = c.m_cart + c.m_pole;
+  const T ml = c.m_pole * c.length;
+  pt.thd = x[3];
+  pt.s = sin_t(x[2]);
+  pt.c = cos_t(x[2]);
+  pt.temp = (u[0] + ml * (pt.thd * pt.thd) * pt.s) / m_total;
+  pt.den = c.length * (T(4) / T(3) - c.m_pole * (pt.c * pt.c) / m_total);
+  pt.thdd = (-c.gravity * pt.s + pt.c * pt.temp) / pt.den;
+  dx[0] = x[1];
+  dx[1] = pt.temp - ml * pt.thdd * pt.c / m_total;
+  dx[2] = pt.thd;
+  dx[3] = pt.thdd;
+}
+
+template <typename T>
+QT_HD void field_tangent(const CartPole<T>& c, const CartPolePoint<T>& p, const T* tx, const T* tu, T* out) {
+  const T m_total = c.m_cart + c.m_pole;
+  const T ml = c.m_pole * c.length;
+  const T dth = tx[2], dthd = tx[3];
+  const T ds = p.c * dth, dc = -p.s * dth;
+  const T dtemp = (tu[0] + ml * ((dthd * p.thd + p.thd * dthd) * p.s + (p.thd * p.thd) * ds)) / m_total;
+  const T dden = c.length * (-(c.m_pole * (dc * p.c + p.c * dc)) / m_total);
+  const T dnum = -c.gravity * ds + (dc * p.temp + p.c * dtemp);
+  const T dthdd = (dnum - p.thdd * dden) / p.den;
+  out[0] = tx[1];
+  out[1] = dtemp - ml * (dthdd * p.c + p.thdd * dc) / m_total;
+  out[2] = tx[3];
+  out[3] = dthdd;
+}
+
+// The step at (x, u) once, Euler or RK4 as discrete_step, keeping each field
+// evaluation's point (pts[0] only for Euler).
+template <typename P, typename T>
+QT_HD void discrete_step_points(const P& plant, int rk4, const StepSizes<T>& h, const T* x, const T* u,
+                                typename PointOf<P>::type (&pts)[4]) {
+  constexpr int N = P::N;
+  T k[N], xt[N];
+  field_point(plant, x, u, k, pts[0]);
+  if (!rk4) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) xt[i] = x[i] + h.half_dt * k[i];
+  field_point(plant, xt, u, k, pts[1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) xt[i] = x[i] + h.half_dt * k[i];
+  field_point(plant, xt, u, k, pts[2]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) xt[i] = x[i] + h.dt * k[i];
+  field_point(plant, xt, u, k, pts[3]);
+}
+
+// Column d of [A | B] from the points of discrete_step_points: the tangent
+// e_d carried through the integrator as discrete_step carries the state.
+template <typename P, typename T>
+QT_HD void discrete_step_tangent_column(const P& plant, int rk4, const StepSizes<T>& h,
+                                        const typename PointOf<P>::type (&pts)[4], int d, T* col) {
+  constexpr int N = P::N;
+  constexpr int M = P::M;
+  T tx[N], tu[M], k[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) tx[i] = i == d ? T(1) : T(0);
+#pragma unroll
+  for (int j = 0; j < M; ++j) tu[j] = N + j == d ? T(1) : T(0);
+  field_tangent(plant, pts[0], tx, tu, k);
+  if (!rk4) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) col[i] = tx[i] + h.dt * k[i];
+    return;
+  }
+  T acc[N], xt[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    acc[i] = k[i];
+    xt[i] = tx[i] + h.half_dt * k[i];
+  }
+  field_tangent(plant, pts[1], xt, tu, k);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    acc[i] = acc[i] + T(2) * k[i];
+    xt[i] = tx[i] + h.half_dt * k[i];
+  }
+  field_tangent(plant, pts[2], xt, tu, k);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    acc[i] = acc[i] + T(2) * k[i];
+    xt[i] = tx[i] + h.dt * k[i];
+  }
+  field_tangent(plant, pts[3], xt, tu, k);
+#pragma unroll
+  for (int i = 0; i < N; ++i) col[i] = tx[i] + h.sixth_dt * (acc[i] + k[i]);
+}
+
 }  // namespace qt

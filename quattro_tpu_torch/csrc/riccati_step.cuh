@@ -1,6 +1,9 @@
-// The backward Riccati recursion of K1 (fused_riccati_single.cu), K3
-// (fused_solve.cu) and K4 (fused_riccati_batched.cu), as riccati_step_tiles
-// is shared by their TPU originals (quattro_tpu/ops/fused_riccati.py).
+// The backward Riccati recursion of K1 (fused_riccati_single.cu) and K3
+// (fused_solve.cu), as riccati_step_tiles is shared by their TPU originals
+// (quattro_tpu/ops/fused_riccati.py). K4 (fused_riccati_batched.cu) runs the
+// same law in the same rounding for one warp per trajectory
+// (riccati_warp.cuh, which reuses dot_n, rsqrt_t, the stage enumeration and
+// step_shape from here).
 //
 // Law, JAX's algebraic form: the Q-expansion; a Cholesky-Crout factor of
 // Q_uu + reg I that reads the upper triangle (rsqrt, then multiplies by the
@@ -45,10 +48,8 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cstring>
 
 #if defined(__CUDACC__)
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tile_copy.cuh"
@@ -122,27 +123,6 @@ template <typename T>
 struct SlotView {
   const T* w;
   QT_HD T operator[](int e) const { return w[e]; }
-};
-
-// A stage tensor in a slot of 32-bit words, each the aligned word that holds
-// one bfloat16 value: the value is its low half when its address is a
-// multiple of 4 (parity p0 + e * odd even), else its high half. Widening
-// bfloat16 to float is exact: the 16 bits become the high half of the float.
-template <typename T>
-struct Bf16View {
-  const uint32_t* w;
-  int p0, odd;
-  QT_HD T operator[](int e) const {
-    const uint32_t word = w[e];
-    const uint32_t bits = ((p0 + e * odd) & 1) ? (word & 0xffff0000u) : (word << 16);
-#if defined(__CUDA_ARCH__)
-    return static_cast<T>(__uint_as_float(bits));
-#else
-    float v;
-    std::memcpy(&v, &bits, sizeof v);
-    return static_cast<T>(v);
-#endif
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -399,11 +379,9 @@ auto step_shape(int n, int m, F&& f) {
 // Device: stage readers, the ring and the recursion.
 
 // Stage readers: one stage tensor of one trajectory, entry e of step t at
-// p[t * step + e * stride] of a stored type S. K1 and K3 read contiguous
-// stage data of the carry type (stride 1); K4 reads its natural or packed
-// layout (stride tile_s * 128) and bfloat16 stage inputs, widened at use.
-// copy() puts entry e of step t in flight into a ring slot (cp.async);
-// view() reads a slot as the carry type.
+// p[t * step + e * stride] of a stored type S (K1 and K3: contiguous stage
+// data of the carry type, stride 1). copy() puts entry e of step t in flight
+// into a ring slot (cp.async); view() reads a slot as the carry type.
 template <typename T, typename S>
 struct Strided;
 
@@ -417,25 +395,6 @@ struct Strided<T, T> {
     copy_async(dst, p + (long long)t * step + (long long)e * stride);
   }
   __device__ __forceinline__ View view(const T* slot, int) const { return View{slot}; }
-};
-
-// bfloat16: cp.async moves at least 4 bytes, so each copy takes the aligned
-// word that holds the value (it never leaves the allocation's granule) and
-// the view picks the value's half from its address.
-template <typename T>
-struct Strided<T, __nv_bfloat16> {
-  using Word = uint32_t;
-  using View = Bf16View<T>;
-  const __nv_bfloat16* p;
-  long long step, stride;
-  __device__ __forceinline__ void copy(uint32_t* dst, int t, int e) const {
-    const uintptr_t at = reinterpret_cast<uintptr_t>(p + (long long)t * step + (long long)e * stride);
-    copy_async(dst, reinterpret_cast<const uint32_t*>(at & ~uintptr_t(3)));
-  }
-  __device__ __forceinline__ View view(const uint32_t* slot, int t) const {
-    const uintptr_t at = reinterpret_cast<uintptr_t>(p + (long long)t * step);
-    return View{slot, static_cast<int>((at >> 1) & 1), static_cast<int>(stride & 1)};
-  }
 };
 
 template <typename Word, int NC, int MC>
@@ -516,7 +475,7 @@ __device__ void riccati_pass(StepTiles<T, NC, MC>& s, StageRing<typename Reader:
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   // Warps past those that own value entries refill the ring while the others
-  // solve, off the chain; without such warps (K4's 128 threads) every thread
+  // solve, off the chain; without such warps every thread
   // issues its copies first.
   constexpr int kValueThreads = (kValueEntries<NC> + 31) / 32 * 32;
   const int issue_first = nt >= kValueThreads + 32 ? kValueThreads : 0;

@@ -1,6 +1,7 @@
 // Coalesced copies of a contiguous range of device memory into and out of a
-// CTA's shared-memory tile (kernels K8 and K9), and the groups of copies that
-// fill the Riccati stage ring (K1, K3 and K4).
+// CTA's shared-memory tile (kernels K8 and K9), the groups of copies that
+// fill the Riccati stage ring (K1 and K3), and copies of a run-time size
+// (K4's and K5's staging where the copy engine does not apply).
 //
 // All threads of the block take part, neighbouring threads on neighbouring
 // values, and the shared-memory side is a functor of the value's index in the
@@ -77,6 +78,17 @@ __device__ inline void copy_async(T* dst_shared, const T* src) {
 }
 
 __device__ inline void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// cp.async of 4, 8 or 16 bytes (src and dst aligned to it), the size chosen at run time (K4's and K5's staging).
+__device__ inline void copy_async_bytes(int bytes, void* dst_shared, const void* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
 
 // Groups of copies (the Riccati stage ring, riccati_step.cuh): commit_async closes the thread's copies issued
 // since the last commit into one group; wait_async_groups<N> waits until at most N of its groups are in flight.

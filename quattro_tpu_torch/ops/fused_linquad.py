@@ -14,9 +14,10 @@ the chain K5 -> K4 crosses device memory once with no repack. ``tile_s`` and
 The TPU kernel traces ``jax.jacfwd`` of the user's dynamics and the autodiff
 expansion of the user's cost into its body. A CUDA kernel cannot, so
 ``csrc/fused_linquad.cu`` carries the in-repo plants (``csrc/plants.cuh``,
-Jacobian columns by dual numbers) and the quadratic + softplus^2-barrier
-cost (``csrc/costs.cuh``, analytic expansion) as device functions; on CUDA
-tensors other plants or costs raise ``ValueError``. CPU tensors take the
+the step's value once per point, then tangent-only Jacobian columns) and the
+quadratic + softplus^2-barrier cost (``csrc/costs.cuh``, analytic expansion)
+as device functions; on CUDA tensors other plants or costs raise
+``ValueError``. CPU tensors take the
 plain form, the port's ``solver/derivatives.py`` over the batch, then packed.
 """
 

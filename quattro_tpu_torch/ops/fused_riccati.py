@@ -7,10 +7,11 @@ Counterparts of ``quattro_tpu/ops/fused_riccati.py``:
   ``csrc/fused_riccati_single.cu``.
 - ``riccati_backward_batched_fused``, ``riccati_backward_batched_fused2d``
   and ``riccati_backward_batched_fused_auto`` (K4): a batch of trajectories,
-  one launch of ``csrc/fused_riccati_batched.cu``, which runs K1's step on
-  every trajectory. The TPU's two batch layouts (batch on lanes; every matrix
-  entry a (tile_s, 128) tile) are one kernel here; the packed layout survives
-  as the ``packed_stage=`` input that ``ops/fused_linquad.py`` (K5) writes.
+  one launch of ``csrc/fused_riccati_batched.cu``, whose warp per trajectory
+  computes K1's step (``csrc/riccati_warp.cuh``) bit for bit. The TPU's two
+  batch layouts (batch on lanes; every matrix entry a (tile_s, 128) tile) are
+  one kernel here; the packed layout survives as the ``packed_stage=`` input
+  that ``ops/fused_linquad.py`` (K5) writes.
 
 On CUDA tensors the kernels run; on CPU tensors the plain PyTorch forms below
 compute the same functions. There is no fallback from one to the other: a

@@ -440,6 +440,93 @@ def test_k4_bf16_stream_on_card(cuda_device):
         assert 0.0 < float((o - e).abs().max() / e.abs().max()) < 5e-2
 
 
+K4_WARPS = 4  # kWarps of csrc/fused_riccati_batched.cu: trajectories per CTA, one warp each
+K4_RING = 4  # kDepth of csrc/fused_riccati_batched.cu: steps of stage data in the ring
+
+
+def rounded_through(stages, stream):
+    """(a, b, exp) as K4 reads them: the carry type, or rounded through ``stream`` (bfloat16)."""
+    a, b_mat, exp = stages
+    if stream is None:
+        return a, b_mat, exp
+    r = lambda x: x.to(stream).to(x.dtype)
+    return r(a), r(b_mat), CostExpansion(*(r(e) for e in exp))
+
+
+def assert_lanes_are_k1(stages, v_x, v_xx, out, lanes, stream=None):
+    """The given lanes of K4's (k, K) equal K1 on those trajectories bit for bit (K4 widens bfloat16 exactly,
+    so a bf16 lane equals K1 on the rounded inputs)."""
+    a, b_mat, exp = rounded_through(stages, stream)
+    for lane in lanes:
+        k1 = fused_riccati.riccati_backward_fused_single(a[lane], b_mat[lane], [e[lane] for e in exp], v_x[lane],
+                                                         v_xx[lane], 1e-6)
+        assert torch.equal(k1[0], out[0][lane]) and torch.equal(k1[1], out[1][lane]), lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, stream", [(torch.float64, None), (torch.float32, None),
+                                           (torch.float32, torch.bfloat16)], ids=["f64", "f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 3, K4_WARPS + 1, 2049])
+@pytest.mark.parametrize("n, m", [(12, 4), (4, 1), (7, 3), (16, 8)])
+def test_k4_warp_lanes_are_k1_bit_for_bit(cuda_device, n, m, batch, dtype, stream):
+    """Full CTAs and a tail CTA with idle warps, at each instance of the step, natural layout: the first,
+    middle and last trajectories equal K1 bit for bit, the whole batch the plain form normwise."""
+    a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, batch, 9, n, m, dtype=dtype)
+    _build.reset_launches()
+    out = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6, stream_dtype=stream)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: 1}
+    assert_lanes_are_k1((a, b_mat, exp), v_x, v_xx, out, sorted({0, batch // 2, batch - 1}), stream)
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6, stream)
+    for o, r in zip(out, ref):
+        assert normwise(o, r) <= NORMWISE[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [None, torch.bfloat16], ids=["carry", "bf16"])
+@pytest.mark.parametrize("tile_s, batch", [(1, 128), (1, 384), (8, 1024)])
+@pytest.mark.parametrize("n, m", [(12, 4), (4, 1), (7, 3)])
+def test_k4_packed_lanes_are_k1_bit_for_bit(cuda_device, n, m, tile_s, batch, stream):
+    """The packed layout (tile_s 1 and 8, h_pad > H), where a CTA's warps fill one shared ring: equal to the
+    natural layout bit for bit, and the first, middle and last lanes to K1."""
+    horizon, h_pad = 5, 8
+    a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, batch, horizon, n, m, dtype=torch.float32)
+    natural = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6, stream_dtype=stream)
+    packed = fused_riccati.pack_stages((a, b_mat, exp.l_xx, exp.l_uu, exp.l_ux, exp.l_x, exp.l_u), tile_s, h_pad)
+    _build.reset_launches()
+    out = fused_riccati.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=tile_s,
+                                                         stream_dtype=stream, packed_stage=packed, horizon=horizon)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: 1}
+    assert all(torch.equal(o, r) for o, r in zip(out, natural))
+    assert_lanes_are_k1((a, b_mat, exp), v_x, v_xx, out, [0, batch // 2, batch - 1], stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["natural", "packed", "bf16"])
+@pytest.mark.parametrize("horizon", sorted({0, 1, 2, K4_RING - 1, K4_RING, K4_RING + 1, 2 * K4_RING + 1}))
+def test_k4_horizons_around_the_ring(cuda_device, horizon, layout):
+    """H = 0, 1, 2 and around the ring's depth: shapes, the plain form, and lanes equal to K1."""
+    dtype = torch.float32 if layout == "bf16" else torch.float64
+    stream = torch.bfloat16 if layout == "bf16" else None
+    a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, 128, horizon, 12, 4, dtype=dtype)
+    if layout == "packed":
+        packed = fused_riccati.pack_stages((a, b_mat, exp.l_xx, exp.l_uu, exp.l_ux, exp.l_x, exp.l_u), 1,
+                                           horizon + 2)
+        out = fused_riccati.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=1, block_t=1,
+                                                             packed_stage=packed, horizon=horizon)
+    else:
+        out = fused_riccati.riccati_backward_batched_fused(a, b_mat, exp, v_x, v_xx, 1e-6, stream_dtype=stream)
+    torch.cuda.synchronize()
+    assert out[0].shape == (128, horizon, 4) and out[1].shape == (128, horizon, 4, 12)
+    if horizon == 0:
+        return
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, exp, v_x, v_xx, 1e-6, stream)
+    for o, r in zip(out, ref):
+        assert normwise(o, r) <= NORMWISE[dtype]
+    assert_lanes_are_k1((a, b_mat, exp), v_x, v_xx, out, [0, 77, 127], stream)
+
+
 def quad_linquad_problem(device, batch=128, horizon=7, seed=4, dtype=torch.float64):
     rng = np.random.default_rng(seed)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
@@ -480,6 +567,69 @@ def test_k5_to_k4_chain_equals_unpacked_k4(cuda_device):
     direct = fused_riccati.riccati_backward_batched_fused(a, b_mat, CostExpansion(l_x, l_u, l_xx, l_uu, l_ux),
                                                           v_x, v_xx, 1e-6)
     assert all(torch.equal(c, d) for c, d in zip(chain, direct))
+
+
+def linquad_problem(device, plant, method, batch, horizon, dtype, seed=5):
+    """A seeded batch for K5 at either plant: states near the operating point (the quadrotor's pitch up to
+    about 1.2 rad, where tan and 1/cos(pitch) grow), controls on both sides of the barrier."""
+    rng = np.random.default_rng(seed)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    if plant == "quadrotor":
+        x_ref = t([0.0, 0.0, 0.5] + [0.0] * 9)
+        cost = make_quadratic_cost(t(Q), t([0.01] * 4), x_ref, barrier_alpha=1000.0)
+        xs = 0.1 * rng.standard_normal((batch, horizon + 1, 12))
+        xs[:, :, 7] = 1.2 * np.tanh(3.0 * xs[:, :, 7])
+        us = 2.4 + 0.5 * rng.standard_normal((batch, horizon, 4))
+        field = QuadrotorField()
+    else:
+        cost = make_quadratic_cost(t([5.0, 0.1, 10.0, 0.1]), t([0.001]), t([0.0] * 4), barrier_alpha=10.0)
+        xs = np.array([0.3, 0.5, 0.6, 1.5]) * rng.standard_normal((batch, horizon + 1, 4))
+        us = 5.0 * rng.standard_normal((batch, horizon, 1))
+        field = CartPoleField()
+    return make_discrete(field, 0.01, method), cost, t(xs), t(us)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["rk4", "euler"])
+@pytest.mark.parametrize("plant", ["quadrotor", "cartpole"])
+def test_k5_plants_and_pads_match_plain(cuda_device, plant, method, dtype):
+    """Both plants, Euler and RK4, pad steps (h_pad > H) and step tiles that straddle the pad: against the
+    plain form (normwise, as chip_smoke.py holds K5), then K5 -> K4 equal to K4 on the unpacked stages."""
+    batch, horizon, tile_s, block_t = 256, 9, 2, 4  # h_pad 12: 3 pad steps, then 9 real ones
+    dyn, cost, xs, us = linquad_problem(cuda_device, plant, method, batch, horizon, dtype)
+    _build.reset_launches()
+    out = fused_linquad.linquad_batched_fused(dyn, cost, xs, us, tile_s=tile_s, block_t=block_t)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_linquad.KERNEL: 1}
+    ref = fused_linquad.linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=tile_s, block_t=block_t)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.shape[0] == batch // (tile_s * 128) * 12
+        assert normwise(o, r) <= NORMWISE[dtype]
+    n, m = xs.shape[-1], us.shape[-1]
+    v_x = xs[:, -1].clone()
+    v_xx = torch.eye(n, dtype=dtype, device=cuda_device).expand(batch, n, n).contiguous()
+    chain = fused_riccati.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=tile_s,
+                                                           block_t=block_t, packed_stage=out, horizon=horizon)
+    a, b_mat, l_xx, l_uu, l_ux, l_x, l_u = (fused_riccati.unpack_stage(x, batch, horizon, tail, tile_s)
+                                            for x, tail in zip(out, fused_riccati.stage_shapes(n, m)))
+    direct = fused_riccati.riccati_backward_batched_fused(a, b_mat, CostExpansion(l_x, l_u, l_xx, l_uu, l_ux),
+                                                          v_x, v_xx, 1e-6)
+    assert all(torch.equal(c, d) for c, d in zip(chain, direct))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon, block_t", [(1, 2), (2, 4), (3, 1), (5, 8)])
+def test_k5_short_horizons_match_plain(cuda_device, horizon, block_t):
+    """Horizons shorter than a CTA's step tile, with and without pad steps."""
+    dyn, cost, xs, us = linquad_problem(cuda_device, "quadrotor", "rk4", 128, horizon, torch.float64)
+    out = fused_linquad.linquad_batched_fused(dyn, cost, xs, us, tile_s=1, block_t=block_t)
+    ref = fused_linquad.linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=1, block_t=block_t)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        if r.numel():
+            assert normwise(o, r) <= NORMWISE[torch.float64]
 
 
 def batched_rollout_inputs(device, batch=5, seed=6, horizon=12):
