@@ -88,8 +88,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    launches per trip; float64 lanes against their single solves); and the KKT
    route (``build_lqr_kkt`` -> ``btd_solve`` -> ``recover_primal`` ->
    ``kkt_residual``, K9) on both problems against K1's Newton step and the CPU.
+13. The training path (``phase_train``): ``collect_gain_dataset`` on the
+   quadrotor (RK4, H=50, the example collection's cost, ILQRConfig(tol=1e-3,
+   max_iter=8, linesearch="fused")) from 1,024 LHS initial states over 10
+   MPC steps, device-resident with compact_iters=3, float32: one K4 and one
+   K7 launch per trip of the logged batched solve, rows kept/valid/dropped
+   and rows/s; the same collection at B=64 over 3 steps in float64 with the
+   fused and "vmap" backends (equal valid masks and rows, x within 1e-8 and
+   gain tokens within 1e-7); the shipped quadrotor predictor's width (616,244
+   parameters) trained 2 epochs (batch 256, cosine) on the device-resident
+   and in-memory paths, the loss falling on both; 5 Adam steps on the card
+   against the CPU (dropout 0, per-step loss within 1e-4); the trained
+   predictor's hybrid MPC over 10 steps held to the pure loop of phase 5
+   (1e-3); the device idle share of a training epoch and of a control step's
+   collection, and the peak device memory. The shard IO's native library
+   must be the active backend.
 
-Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10 and 12)
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12 and 13)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -186,11 +201,32 @@ ASSOC_MPC_STEPS = 20
 # Riccati Newton step (tests/test_ops.py:130-154).
 KKT_RESIDUAL_REL = 1e-8
 KKT_DX_RTOL, KKT_DX_ATOL = 1e-5, 1e-8
+# The training path (phase 13): quadrotor RK4 at dt=0.01, H=50, the example
+# collection's cost (examples/collect_and_train.py), ILQRConfig(tol=1e-3,
+# max_iter=8, linesearch="fused"), 1,024 initial states from the "reference"
+# LHS envelope (x, y, z, roll, pitch, yaw), 10 MPC steps, compact_iters=3.
+TRAIN_H = 50
+TRAIN_BATCH = 1024
+TRAIN_SIM_STEPS = 10
+TRAIN_MAX_ITER = 8
+TRAIN_COMPACT = 3
+TRAIN_ENVELOPE = ((-0.3, -0.3, 0.49, -0.2, -0.2, -0.5), (0.3, 0.3, 0.51, 0.2, 0.2, 0.5))
+# float64, the fused backend against "vmap": test_torch_batch.py's bars for u and gains, normwise.
+PARITY_BATCH = 64
+PARITY_STEPS = 3
+PARITY_X_REL = 1e-8
+PARITY_KK_REL = 1e-7
+# The shipped quadrotor predictor's width (checkpoints/quadrotor_gain.npz): trained 2 epochs, batch 256.
+SHIPPED_PARAMS = 616244
+TRAIN_ROWS_PER_STEP = 256
+TRAIN_EPOCHS = 2
+# Adam steps on the card against the CPU (float32, TF32 off): per-step loss, relative.
+CPU_STEPS = 5
+TRAIN_CPU_REL = 1e-4
+TRAINED_HYBRID_STEPS = 10
 
-# Published H100 SXM peaks (NVIDIA data sheet): float32 without tensor
-# cores, float64 without tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-PEAK_BYTES = 3.35e12
+# The card's peaks (float32 and float64 without tensor cores, HBM3) come from
+# quattro_tpu_torch/utils/roofline.py's "h100-sxm" entry (see bound_ms).
 # queued_ms's sleep kernel: about 3 ms of the card's clock, longer than the host takes to queue 50 calls.
 QUEUE_SLEEP_CYCLES = 5_000_000
 QUEUED = {True: "", False: " (not queued ahead: host gaps count)"}
@@ -344,8 +380,11 @@ def k2_work(horizon, n_alpha, dtype):
 
 
 def bound_ms(work, dtype):
+    from quattro_tpu_torch.utils.roofline import PEAKS
+
+    peak = PEAKS["h100-sxm"]
     nbytes, flops = work
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / peak.hbm_bytes, flops / peak.flops(dtype)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1524,6 +1563,152 @@ def phase_mpc(report, root):
     return results, pure_xs
 
 
+def quadrotor_lhs_states(num, dtype, seed=0):
+    """``num`` quadrotor initial states: poses (x, y, z, roll, pitch, yaw) from the "reference" LHS envelope."""
+    from quattro_tpu_torch.training import lhs_initial_states
+
+    lower, upper = (torch.tensor(v, dtype=torch.float64, device="cuda") for v in TRAIN_ENVELOPE)
+    pose = lhs_initial_states(torch.Generator(device="cuda").manual_seed(seed), lower, upper, num)
+    x0 = torch.zeros(num, 12, dtype=torch.float64, device="cuda")
+    x0[:, 0:3], x0[:, 6:9] = pose[:, 0:3], pose[:, 3:6]
+    return x0.to(dtype)
+
+
+def phase_train(report, pure_xs):
+    """The training path: logged collection (K4 and K7 every trip), the gain-predictor trainer, the new predictor's loop."""
+    from quattro_tpu_torch.control import make_quadrotor_mpc
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.parallel import batched_ilqr_solve_with_logs
+    from quattro_tpu_torch.solver import ILQRConfig
+    from quattro_tpu_torch.systems import QuadrotorField, make_discrete
+    from quattro_tpu_torch.training import TrainConfig, collect_gain_dataset, train_gain_predictor
+    from quattro_tpu_torch.training.train import _fit_normalizer_flat, _make_optimizer, _split_tokens, _train_step
+    from quattro_tpu_torch.io import native_available
+
+    if not native_available():
+        raise AssertionError("shard IO: the native (C++) library is not the active backend")
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    config = ILQRConfig(tol=1e-3, max_iter=TRAIN_MAX_ITER, linesearch="fused")
+    dyn, cost, fcost, _, _ = bench_problem(torch.float32, TRAIN_H)
+    x0 = quadrotor_lhs_states(TRAIN_BATCH, torch.float32)
+
+    def collect():
+        return collect_gain_dataset(dyn, cost, fcost, x0, TRAIN_H, 4, TRAIN_SIM_STEPS, config,
+                                    compact_iters=TRAIN_COMPACT, device_resident=True)
+
+    start = time.perf_counter()
+    ds, counts = counted((K4, K7), report, collect)
+    seconds = time.perf_counter() - start
+    stats = ds.stats
+    log(f"collection B={TRAIN_BATCH} H={TRAIN_H} {TRAIN_SIM_STEPS} steps float32: rows kept {stats.rows_kept}, "
+        f"valid {stats.rows_valid}, dropped {stats.rows_dropped} ({stats.dropped_fraction:.4f}); {stats.trips} trips, "
+        f"launches {counts}; {seconds:.3f} s, {stats.rows_kept / seconds:.1f} rows/s")
+    if counts != {K4: stats.trips, K7: stats.trips}:
+        raise AssertionError(f"collection: launches {counts}, expected one K4 and one K7 per trip ({stats.trips})")
+    if not (len(ds) == stats.rows_kept > 0 and torch.isfinite(ds.x_flat).all() and torch.isfinite(ds.kk_flat).all()
+            and ds.x_row_shape == (TRAIN_H + 1, 12) and ds.kk_row_shape == (TRAIN_H, 52)):
+        raise AssertionError("collection: malformed rows")
+    step_idle = idle_share(lambda: collect_gain_dataset(dyn, cost, fcost, x0, TRAIN_H, 4, 1, config,
+                                                        compact_iters=TRAIN_COMPACT, device_resident=True))
+    results["collect"] = dict(seconds=seconds, rows_per_s=stats.rows_kept / seconds, rows_kept=stats.rows_kept,
+                              rows_valid=stats.rows_valid, rows_dropped=stats.rows_dropped, trips=stats.trips,
+                              k4_per_step=stats.trips / TRAIN_SIM_STEPS, step_idle_share=step_idle)
+
+    # float64: the fused backend (K4) against "vmap", on the first control step's logs and on the whole collection.
+    dyn64, cost64, fcost64, _, _ = bench_problem(torch.float64, TRAIN_H)
+    x64 = quadrotor_lhs_states(PARITY_BATCH, torch.float64)
+    u64 = torch.zeros(PARITY_BATCH, TRAIN_H, 4, dtype=torch.float64, device="cuda")
+    step_logs = {b: batched_ilqr_solve_with_logs(dyn64, cost64, fcost64, x64, u64, config, riccati_backend=b)[1]
+                 for b in ("fused", "vmap")}
+    same_valid = bool(torch.equal(step_logs["fused"].valid, step_logs["vmap"].valid))
+    sets = {b: collect_gain_dataset(dyn64, cost64, fcost64, x64, TRAIN_H, 4, PARITY_STEPS, config,
+                                    riccati_backend=b) for b in ("fused", "vmap")}
+    fused, vmap_ds = sets["fused"], sets["vmap"]
+    same_rows = fused.x_data.shape == vmap_ds.x_data.shape and fused.stats == vmap_ds.stats
+    x_rel = rel_err(torch.from_numpy(fused.x_data), torch.from_numpy(vmap_ds.x_data)) if same_rows else float("inf")
+    kk_rel = rel_err(torch.from_numpy(fused.kk_data), torch.from_numpy(vmap_ds.kk_data)) if same_rows else float("inf")
+    log(f"collection float64 B={PARITY_BATCH} {PARITY_STEPS} steps, fused against vmap: first step's valid masks "
+        f"equal {same_valid}, rows {fused.x_data.shape[0]} and {vmap_ds.x_data.shape[0]}, x rel {x_rel:.3e} (bound "
+        f"{PARITY_X_REL}), gain tokens rel {kk_rel:.3e} (bound {PARITY_KK_REL})")
+    if not (same_valid and same_rows and x_rel <= PARITY_X_REL and kk_rel <= PARITY_KK_REL):
+        raise AssertionError("float64 collection: the fused and vmap backends disagree")
+    results["float64_parity"] = dict(x_rel=x_rel, kk_rel=kk_rel, rows=int(fused.x_data.shape[0]))
+
+    # Training at the shipped quadrotor predictor's width, on the device-resident and in-memory paths.
+    def fresh(dropout=0.1, device="cuda"):
+        return GainPredictor.create(12, 52, prompt_len=1, target_len=TRAIN_H - 1, d_model=128, nhead=4,
+                                    num_decoder_layers=3, dim_feedforward=512, dropout=dropout, max_seq_len=110,
+                                    generator=torch.Generator().manual_seed(0), device=device)
+
+    pred = fresh()
+    if pred.num_params() != SHIPPED_PARAMS:
+        raise AssertionError(f"predictor: {pred.num_params()} parameters, the shipped one has {SHIPPED_PARAMS}")
+    train, test = ds.split(0.8, seed=42)
+    train_cfg = TrainConfig(batch_size=TRAIN_ROWS_PER_STEP, num_epochs=TRAIN_EPOCHS, lr_schedule="cosine")
+    steps = TRAIN_EPOCHS * max(len(train) // TRAIN_ROWS_PER_STEP, 1)
+    trained = {}
+    for label, data in (("device_resident", (train, test)), ("in_memory", (train.to_host(), test.to_host()))):
+        start = time.perf_counter()
+        res = train_gain_predictor(pred, *data, train_cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        hist, test_hist = res.train_loss_history, res.test_loss_history
+        log(f"training {label} ({pred.num_params()} parameters, {len(train)} rows, batch {TRAIN_ROWS_PER_STEP}, "
+            f"{TRAIN_EPOCHS} epochs, cosine): train losses {hist.tolist()}, test {test_hist.tolist()}; "
+            f"{seconds:.3f} s, {steps / seconds:.1f} steps/s, {steps * TRAIN_ROWS_PER_STEP / seconds:.1f} rows/s")
+        if not (np.isfinite(hist).all() and np.isfinite(test_hist).all() and hist[-1] < hist[0]):
+            raise AssertionError(f"training {label}: the loss did not fall: {hist}")
+        trained[label] = res.predictor
+        results[f"train_{label}"] = dict(seconds=seconds, steps_per_s=steps / seconds,
+                                         rows_per_s=steps * TRAIN_ROWS_PER_STEP / seconds, losses=hist.tolist())
+    epoch_idle = idle_share(lambda: train_gain_predictor(pred, train, None, train_cfg._replace(num_epochs=1)))
+    results["epoch_idle_share"] = epoch_idle
+
+    # The card's Adam steps against the CPU's: the same weights and batches, dropout 0, TF32 off.
+    norm = _fit_normalizer_flat(train.x_flat, train.kk_flat, train.x_row_shape, train.kk_row_shape)
+    order = torch.randperm(len(train), generator=torch.Generator().manual_seed(1))[:CPU_STEPS * TRAIN_ROWS_PER_STEP]
+    losses = {}
+    for device in ("cuda", "cpu"):
+        module = fresh(dropout=0.0, device=device).module
+        module.train()
+        optimizer, scheduler = _make_optimizer(module, train_cfg, CPU_STEPS)
+        n_dev = norm.to(device)
+        step_losses = []
+        for ib in order.reshape(CPU_STEPS, TRAIN_ROWS_PER_STEP):
+            xb = n_dev.transform_x(train.x_flat[ib.cuda()].reshape((-1,) + train.x_row_shape).to(device))
+            kk = n_dev.transform_u(train.kk_flat[ib.cuda()].reshape((-1,) + train.kk_row_shape).to(device))
+            step_losses.append(float(_train_step(module, optimizer, scheduler, xb, *_split_tokens(kk, 1))))
+        losses[device] = step_losses
+    step_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"{CPU_STEPS} Adam steps card against CPU: losses {losses['cuda']} and {losses['cpu']}, max rel "
+        f"{step_rel:.3e} (bound {TRAIN_CPU_REL})")
+    if not step_rel <= TRAIN_CPU_REL:
+        raise AssertionError(f"training steps: card and CPU disagree ({step_rel})")
+    results["card_cpu_step_rel"] = step_rel
+
+    # The freshly trained predictor drives the hybrid MPC; held to the pure loop at the same step.
+    new_pred = trained["device_resident"]
+    ctrl = make_quadrotor_mpc(horizon=50, mode="hybrid", predict_fn=new_pred.predict_fn(),
+                              prompt_len=new_pred.prompt_len)
+    plant = make_discrete(QuadrotorField(), 0.01, "rk4")
+    (x, x_plan, lat, _, _), counts = counted(
+        (K1, K2), report,
+        lambda: closed_loop(ctrl.step, ctrl.init_state(), plant, quadrotor_start(torch.device("cuda")),
+                            TRAINED_HYBRID_STEPS))
+    track = float((x - pure_xs[TRAINED_HYBRID_STEPS - 1]).abs().max())
+    median_ms, p99_ms = latency(lat)
+    log(f"MPC hybrid with the trained predictor: {TRAINED_HYBRID_STEPS} steps, max |x - x(pure)| {track:.3e} (bar "
+        f"{HYBRID_TRACK_BAR}), step latency median {median_ms:.2f} ms p99 {p99_ms:.2f} ms, launches {counts}")
+    if not (torch.isfinite(x_plan).all() and track < HYBRID_TRACK_BAR):
+        raise AssertionError(f"MPC hybrid with the trained predictor left the pure closed loop: {track}")
+    results["trained_hybrid"] = dict(track=track, median_ms=median_ms, p99_ms=p99_ms)
+    results["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"train phase: max memory allocated {results['max_memory_allocated_bytes']} bytes; idle share of one "
+        f"training epoch (profiled) {epoch_idle}, of one control step's collection {step_idle}")
+    return results
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1564,9 +1749,11 @@ def main() -> int:
     mpc, pure_xs = phase_mpc(report, root)
     mega = phase_megakernel(report)
     assoc = phase_assoc(report, pure_xs)
+    train = phase_train(report, pure_xs)
     log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
                                 "k67_timing": k67_times, "bench_iters_per_s": rates,
-                                "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc}}))
+                                "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc,
+                                "train": train}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """GainPredictor: the transformer bound to its weights and normalizer.
 
-Counterpart of ``quattro_tpu/models/gain_predictor.py``. ``load`` reads the
-same self-describing npz checkpoints (hyperparameters ``hp_*``, normalizer
-statistics, flax-flattened weights ``param/...``) and carries the weights
-across with ``params_from_jax``. ``predict_fn`` is the inference closure the
+Counterpart of ``quattro_tpu/models/gain_predictor.py``. ``load`` reads and
+``save`` writes the same self-describing npz checkpoints (hyperparameters
+``hp_*``, normalizer statistics, flax-flattened weights ``param/...``); the
+weights cross with ``params_from_jax`` and ``params_to_jax``. ``predict_fn`` is the inference closure the
 hybrid solve calls: normalize the state-error trajectory and the prompt, run
 the model, de-normalize the output (float32).
 """
@@ -63,6 +63,23 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             tensor = tensor.T.contiguous()
         state[".".join(modules + [_LEAF[leaf]])] = tensor
     return state
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of ``params_from_jax``: a ``TransformerPredictor`` state dict as flax flattened names."""
+    flat = {}
+    for name, value in state.items():
+        array = value.detach().cpu().numpy()
+        if name == "target_embedding":
+            flat[name] = array
+            continue
+        *modules, leaf = name.split(".")
+        if modules[0] == "layers":
+            modules = [f"layer_{modules[1]}"] + modules[2:]
+        if leaf == "weight":
+            leaf, array = ("kernel", array.T) if array.ndim == 2 else ("scale", array)
+        flat["/".join(modules + [leaf])] = np.ascontiguousarray(array)
+    return flat
 
 
 @dataclasses.dataclass
@@ -139,6 +156,17 @@ class GainPredictor:
             )
             stride = int(data["hp_state_stride"].item()) if "hp_state_stride" in data.files else 1
         return GainPredictor.from_flat(hparams, flat, normalizer, stride, device)
+
+    def save(self, path: str) -> None:
+        """Write the self-describing npz checkpoint that ``load`` (of either package) reads."""
+        payload = {name: getattr(self.normalizer, name).detach().cpu().numpy()
+                   for name in ("x_mean", "x_std", "u_mean", "u_std")}
+        for key in _HPARAM_KEYS:
+            payload[f"hp_{key}"] = np.asarray(self.module.hparams[key])
+        payload["hp_state_stride"] = np.asarray(self.state_stride)
+        for key, value in params_to_jax(self.module.state_dict()).items():
+            payload[f"param/{key}"] = value
+        np.savez(path, **payload)
 
     @property
     def prompt_len(self) -> int:

@@ -9,15 +9,39 @@
 Submodule names follow the flax module tree so that ``params_from_jax`` maps
 one to the other name for name. The matmuls are plain dense products
 (``nn.Linear``), as the JAX package leaves them to XLA.
+
+Dropout sits where the JAX model applies ``nn.Dropout``: after the positional
+encoding, on the attention output, on the FFN's hidden activation and on its
+output. It acts only in training mode (``module.train()``), with flax's law:
+keep with probability 1 - p, kept values scaled by 1/(1 - p). The masks come
+from the ``generator`` passed to ``forward`` (the trainer's, seeded from its
+config). In eval mode dropout returns its input as it is.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+
+def _keep_mask(shape, keep_prob: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Bernoulli(keep_prob) keep mask of ``shape`` drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training mode: zero with probability ``rate``, scale the rest by 1/(1 - rate)."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = _keep_mask(x.shape, keep_prob, generator, x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -56,19 +80,22 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm block: x = LN(x + Attn(x)); x = LN(x + FFN(x)). Dropout is inference-off."""
+    """Post-norm block: x = LN(x + Attn(x)); x = LN(x + FFN(x)), dropout in training mode."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiHeadSelfAttention(d_model, nhead)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, mask))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        x = self.norm1(x + dropout(self.self_attn(x, mask), rate, generator))
+        hidden = dropout(torch.relu(self.linear1(x)), rate, generator)
+        return self.norm2(x + dropout(self.linear2(hidden), rate, generator))
 
 
 class TransformerPredictor(nn.Module):
@@ -98,7 +125,7 @@ class TransformerPredictor(nn.Module):
         self.control_embed = nn.Linear(control_dim, d_model)
         self.target_embedding = nn.Parameter(torch.empty(target_len, d_model))
         self.layers = nn.ModuleList(
-            [EncoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_decoder_layers)]
+            [EncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_decoder_layers)]
         )
         self.output_linear = nn.Linear(d_model, control_dim)
         self.register_buffer(
@@ -116,14 +143,20 @@ class TransformerPredictor(nn.Module):
                     module.weight.uniform_(-bound, bound, generator=generator)
                     module.bias.zero_()
 
-    def forward(self, x_seq: torch.Tensor, u_prompt: torch.Tensor) -> torch.Tensor:
-        """(B, T, state_dim), (B, prompt_len, control_dim) -> (B, target_len, control_dim)."""
+    def forward(
+        self, x_seq: torch.Tensor, u_prompt: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """(B, T, state_dim), (B, prompt_len, control_dim) -> (B, target_len, control_dim).
+
+        ``generator`` draws the dropout masks in training mode; eval mode ignores it.
+        """
         batch = x_seq.shape[0]
         target = self.target_embedding[None].expand(batch, -1, -1)
         full = torch.cat([self.state_embed(x_seq), self.control_embed(u_prompt), target], dim=1)
         seq_len = full.shape[1]
         full = full + self.positions[None, :seq_len].to(full.dtype)
+        full = dropout(full, self.hparams["dropout"] if self.training else 0.0, generator)
         causal = torch.triu(torch.ones(seq_len, seq_len, dtype=torch.bool, device=full.device), diagonal=1)
         for layer in self.layers:
-            full = layer(full, causal[None, None])
+            full = layer(full, causal[None, None], generator)
         return self.output_linear(full[:, -self.target_len :])

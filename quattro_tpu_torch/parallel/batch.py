@@ -17,21 +17,24 @@ The derivatives run under ``torch.func.vmap``; the line search is
 ``vmap(line_search)`` or, with ``linesearch="fused"``, one batched rollout
 launch per trip (kernel K7, ``solver/rollout.py::line_search_batched_fused``).
 
+``batched_ilqr_solve_with_logs`` runs the same loop and also writes each
+trip's entry into per-lane log buffers (the training-data collection's solve).
+
 ``sharded_ilqr_solve`` (a device mesh) is not ported yet: ROADMAP.md, Queue 1
-item 16.
+item 7.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.func import vmap
 
 from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
-from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRSolution, _backward
+from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRLogs, ILQRSolution, _backward, empty_logs
 from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward_associative
 from quattro_tpu_torch.solver.rollout import line_search, line_search_batched_fused, simulate, trajectory_cost
 
@@ -106,6 +109,44 @@ def batched_ilqr_solve(
     Returns an ``ILQRSolution`` with a leading batch axis; ``iterations``
     (int32) and ``converged`` (bool) are (B,) tensors.
     """
+    config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
+    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
+
+
+def batched_ilqr_solve_with_logs(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch: torch.Tensor,  # (B, n)
+    u_init_batch: torch.Tensor,  # (B, H, m)
+    config: ILQRConfig = ILQRConfig(),
+    riccati_backend: str = "auto",
+    logs: Optional[ILQRLogs] = None,
+) -> Tuple[ILQRSolution, ILQRLogs]:
+    """``batched_ilqr_solve`` that also logs every trip: ``vmap(ilqr_solve_with_logs)``'s semantics.
+
+    The same dispatch, refusals and loop as ``batched_ilqr_solve`` (on the
+    "fused" backend one K4 launch per trip, and one K7 with
+    ``linesearch="fused"``). Trip ``t`` writes entry ``t`` of the lanes that
+    are active at its start, which is each such lane's iteration ``t``: the
+    trip's starting x, the new u, the cost and new cost, k, K, the accepted
+    step size, whether a step was accepted, and ``valid``. Entries after a
+    lane's last iteration stay zero with ``valid=False``, as in the single
+    ``ilqr_solve_with_logs``.
+
+    ``logs``: zero-filled buffers of shape ``(B, max_iter, ...)`` to write
+    into (views of a larger buffer work); ``None`` allocates them.
+    """
+    config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
+    if logs is None:
+        batch, horizon, m = u_init_batch.shape
+        logs = empty_logs((batch, config.max_iter), horizon, x0_batch.shape[-1], m, x0_batch.dtype, x0_batch.device)
+    solution = _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward, logs)
+    return solution, logs
+
+
+def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor, riccati_backend: str):
+    """``(config, backward)`` for the masked loop: the backend's refusals and the dispatch of ``"auto"``."""
     if riccati_backend not in BACKENDS:
         raise ValueError(f"Unknown riccati_backend: {riccati_backend!r}")
     n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
@@ -135,31 +176,16 @@ def batched_ilqr_solve(
         riccati_backend == "auto" and _fused_backend_applies(config, x0_batch, u_init_batch)
     )
     if use_fused:
-        return _batched_ilqr_solve_fused(
-            dynamics, cost, final_cost, x0_batch, u_init_batch, config,
-            stream_dtype=torch.bfloat16 if riccati_backend == "fused_bf16" else None,
-        )
+        # One K4 launch per trip on CUDA.
+        stream_dtype = torch.bfloat16 if riccati_backend == "fused_bf16" else None
+
+        def fused(a, b, exp, v_x, v_xx, reg):
+            return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg, stream_dtype=stream_dtype)
+
+        return config, fused
     if config.parallel_riccati is None and config.riccati == "auto":
         config = config._replace(batch_hint=max(config.batch_hint, x0_batch.shape[0]))
-    backward = _lane_backward(config, x0_batch, u_init_batch)
-    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
-
-
-def _batched_ilqr_solve_fused(
-    dynamics: Dynamics,
-    cost: RunningCost,
-    final_cost: FinalCost,
-    x0_batch: torch.Tensor,
-    u_init_batch: torch.Tensor,
-    config: ILQRConfig,
-    stream_dtype=None,
-) -> ILQRSolution:
-    """The masked batched loop around the fused backward pass: one K4 launch per trip on CUDA."""
-
-    def backward(a, b, exp, v_x, v_xx, reg):
-        return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg, stream_dtype=stream_dtype)
-
-    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
+    return config, _lane_backward(config, x0_batch, u_init_batch)
 
 
 def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
@@ -207,8 +233,13 @@ def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
     return lanes
 
 
-def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: ILQRConfig, backward) -> ILQRSolution:
-    """``vmap(ilqr_solve)``'s semantics as one loop over the batch (see the module docstring)."""
+def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: ILQRConfig, backward,
+                  logs: Optional[ILQRLogs] = None) -> ILQRSolution:
+    """``vmap(ilqr_solve)``'s semantics as one loop over the batch (see the module docstring).
+
+    With ``logs`` (``(B, max_iter, ...)`` buffers) each trip also writes its
+    entry for the lanes active at its start (``batched_ilqr_solve_with_logs``).
+    """
     batch, horizon, m = u_init_batch.shape
     n = x0_batch.shape[-1]
     xs = vmap(partial(simulate, dynamics))(x0_batch, u_init_batch)
@@ -237,7 +268,7 @@ def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: IL
         exp = vmap(partial(quadratize_cost, cost))(xs, us)
         fexp = vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
         k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
-        found, _, new_x, new_u, new_cost = search(xs, us, k, big_k, cs)
+        found, alpha, new_x, new_u, new_cost = search(xs, us, k, big_k, cs)
 
         active = ~done
         small = (cs - new_cost).abs() < config.tol
@@ -254,6 +285,11 @@ def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: IL
         def sel(new, old):
             return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
+        if logs is not None:
+            entry = (xs, new_u, cs, new_cost, k, big_k, alpha, found, active)
+            for buf, value in zip(logs, entry):
+                slot = buf[:, trip]
+                slot.copy_(sel(value, slot))
         xs, us, cs = sel(new_x, xs), sel(new_u, us), sel(new_cost, cs)
         ks, big_ks = sel(k, ks), sel(big_k, big_ks)
         done = done | now_done

@@ -139,6 +139,18 @@ class ILQRLogs(NamedTuple):
     valid: torch.Tensor  # (max_iter,) bool
 
 
+def empty_logs(lead: Tuple[int, ...], horizon: int, n: int, m: int, dtype: torch.dtype, device) -> ILQRLogs:
+    """Zero ``ILQRLogs`` whose fields lead with ``lead``: ``(max_iter,)`` for one solve, ``(B, max_iter)`` for a batch."""
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((*lead, *shape), dtype=dtype, device=device)
+
+    return ILQRLogs(
+        x_seq=zeros(horizon + 1, n), u_seq=zeros(horizon, m), cost=zeros(), new_cost=zeros(),
+        k_seq=zeros(horizon, m), big_k_seq=zeros(horizon, m, n), alpha=zeros(),
+        found_update=zeros(dtype=torch.bool), valid=zeros(dtype=torch.bool),
+    )
+
+
 def _backward(config: ILQRConfig):
     if config.parallel_riccati is not None:  # legacy boolean override
         return riccati_backward_associative if config.parallel_riccati else riccati_backward
@@ -287,14 +299,7 @@ def ilqr_solve_with_logs(
     n = x0.shape[0]
     mi = config.max_iter
 
-    def zeros(*shape, dtype=x_seq.dtype):
-        return torch.zeros((mi, *shape), dtype=dtype, device=x0.device)
-
-    logs = ILQRLogs(
-        x_seq=zeros(horizon + 1, n), u_seq=zeros(horizon, m), cost=zeros(), new_cost=zeros(),
-        k_seq=zeros(horizon, m), big_k_seq=zeros(horizon, m, n), alpha=zeros(),
-        found_update=zeros(dtype=torch.bool), valid=zeros(dtype=torch.bool),
-    )
+    logs = empty_logs((mi,), horizon, n, m, x_seq.dtype, x0.device)
     iteration, done, reg = 0, False, config.reg
     while iteration < mi and not done:
         found, alpha, new_x, new_u, new_cost, k_seq, big_k_seq = _ilqr_iteration(

@@ -1,0 +1,26 @@
+"""Observability: phase timing, profiler scopes, metrics IO, roofline counts, debug checks.
+
+Counterpart of ``quattro_tpu.utils``. ``verify_halo_exchange`` comes with the
+port of ``parallel/horizon.py`` (ROADMAP.md, Queue 1 item 8).
+"""
+
+from quattro_tpu_torch.utils.debug import nan_guard, tree_checksum
+from quattro_tpu_torch.utils.metrics import (
+    JsonlLogger,
+    load_dataset_shards,
+    save_dataset_shard,
+    solver_log_summary,
+)
+from quattro_tpu_torch.utils.timing import PhaseTimer, block_nnz_per_sec, device_trace
+
+__all__ = [
+    "nan_guard",
+    "tree_checksum",
+    "JsonlLogger",
+    "load_dataset_shards",
+    "save_dataset_shard",
+    "solver_log_summary",
+    "PhaseTimer",
+    "block_nnz_per_sec",
+    "device_trace",
+]

@@ -954,3 +954,81 @@ def test_associative_pass_on_card_matches_cpu(cuda_device, batch):
     torch.cuda.synchronize()
     assert dict(_build.launches) == {smallchol.KERNEL: 2}
     _close_all(ref, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linesearch", ["xla", "fused"])
+def test_logged_fused_solve_matches_logged_vmap(cuda_device, linesearch):
+    """The logged batched solve (float64): the fused backend's logs against "vmap"'s, and each lane against the
+    single ``ilqr_solve_with_logs`` on the card; one K4 (and K7) launch per trip."""
+    from quattro_tpu_torch.parallel import batched_ilqr_solve_with_logs
+    from quattro_tpu_torch.solver import ilqr_solve_with_logs
+
+    dyn, cost, fcost, x0s, u0s = batched_cartpole(cuda_device, batch=9)
+    cfg = ILQRConfig(tol=1e-3, max_iter=8, linesearch=linesearch)
+    _build.reset_launches()
+    fused, logs = batched_ilqr_solve_with_logs(dyn, cost, fcost, x0s, u0s, cfg, riccati_backend="fused")
+    torch.cuda.synchronize()
+    trips = int(fused.iterations.max())
+    expected = {fused_riccati.BATCHED_KERNEL: trips}
+    if linesearch == "fused":
+        expected[fused_rollout.BATCHED_KERNEL] = trips
+    assert trips >= 2 and dict(_build.launches) == expected
+    ref_sol, ref = batched_ilqr_solve_with_logs(dyn, cost, fcost, x0s, u0s, cfg, riccati_backend="vmap")
+    assert torch.equal(logs.valid, ref.valid) and torch.equal(logs.found_update, ref.found_update)
+    assert torch.equal(fused.iterations, ref_sol.iterations)
+    for got, want in zip(logs, ref):
+        np.testing.assert_allclose(got.cpu().double().numpy(), want.cpu().double().numpy(), rtol=1e-8,
+                                   atol=1e-7 * max(float(want.abs().max()), 1.0))
+    for lane in range(x0s.shape[0]):
+        _, single = ilqr_solve_with_logs(dyn, cost, fcost, x0s[lane], u0s[lane], cfg)
+        assert torch.equal(single.valid, logs.valid[lane])
+        np.testing.assert_allclose(logs.x_seq[lane].cpu().numpy(), single.x_seq.cpu().numpy(), rtol=1e-8, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_collection_launches_k4_and_k7_once_per_trip(cuda_device):
+    """A small float32 collection ("auto": the "fused" backend): one K4 and one K7 launch per trip, summed over
+    the control steps (``stats.trips``), and every valid row kept on the card."""
+    from quattro_tpu_torch.training import collect_gain_dataset
+
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda_device)
+    dyn = make_discrete(CartPoleField(), 0.01, "rk4")
+    cost = make_quadratic_cost(t([5.0, 0.1, 10.0, 0.1]), t([0.001]), t([0.0] * 4))
+    fcost = make_quadratic_final_cost(t([50.0, 6.0, 100.0, 0.1]), t([0.0] * 4))
+    x0s = t(0.2 * np.random.default_rng(2).standard_normal((8, 4)))
+    cfg = ILQRConfig(tol=1e-1, max_iter=6, linesearch="fused")
+    _build.reset_launches()
+    ds = collect_gain_dataset(dyn, cost, fcost, x0s, 12, 1, 4, cfg, compact_iters=6, device_resident=True)
+    torch.cuda.synchronize()
+    trips = ds.stats.trips
+    assert trips >= 4
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: trips, fused_rollout.BATCHED_KERNEL: trips}
+    assert ds.x_flat.is_cuda and len(ds) == ds.stats.rows_kept == ds.stats.rows_valid > 0
+    assert torch.isfinite(ds.x_flat).all() and torch.isfinite(ds.kk_flat).all()
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_cpu(cuda_device):
+    """Adam steps of the gain predictor on the card against the same steps on the CPU (float32, TF32 off,
+    dropout 0): per-step losses within 1e-4 relative. (Parameters are not compared element by element: Adam
+    moves a parameter whose gradient is near zero by about lr either way, so rounding noise in such a gradient
+    flips its step.)"""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.training import TrainConfig
+    from quattro_tpu_torch.training.train import _make_optimizer, _train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    batches = [tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((32, 13, 4), (32, 3, 5), (32, 9, 5))) for _ in range(4)]
+    results = {}
+    for device in (cuda_device, torch.device("cpu")):
+        pred = GainPredictor.create(4, 5, prompt_len=3, target_len=9, d_model=32, nhead=4, num_decoder_layers=2,
+                                    dim_feedforward=64, dropout=0.0, max_seq_len=32,
+                                    generator=torch.Generator().manual_seed(3), device=device)
+        module = pred.module.train()
+        optimizer, scheduler = _make_optimizer(module, TrainConfig(lr_schedule="cosine", num_epochs=1), 4)
+        results[device.type] = [float(_train_step(module, optimizer, scheduler, *(t.to(device) for t in b)))
+                                 for b in batches]
+    np.testing.assert_allclose(results["cuda"], results["cpu"], rtol=1e-4)

@@ -35,7 +35,13 @@ def test_the_scan_covers_the_package():
                    "quattro_tpu_torch/ops/fused_linquad.py", "quattro_tpu_torch/parallel/batch.py",
                    "quattro_tpu_torch/parallel/__init__.py", "quattro_tpu_torch/ops/smalllu.py",
                    "quattro_tpu_torch/ops/smallchol.py", "quattro_tpu_torch/ops/blocktridiag.py",
-                   "quattro_tpu_torch/solver/riccati.py", "chip_smoke.py"):
+                   "quattro_tpu_torch/solver/riccati.py", "quattro_tpu_torch/utils/metrics.py",
+                   "quattro_tpu_torch/utils/roofline.py", "quattro_tpu_torch/utils/timing.py",
+                   "quattro_tpu_torch/utils/debug.py", "quattro_tpu_torch/utils/__init__.py",
+                   "quattro_tpu_torch/io/shardio.py", "quattro_tpu_torch/io/__init__.py",
+                   "quattro_tpu_torch/training/collect.py", "quattro_tpu_torch/training/train.py",
+                   "quattro_tpu_torch/training/__init__.py", "quattro_tpu_torch/models/torch_port.py",
+                   "chip_smoke.py"):
         assert module in names
 
 
