@@ -104,7 +104,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    collection, and the peak device memory. The shard IO's native library
    must be the active backend.
 
-Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12 and 13)
+14. The mesh path (``phase_mesh``), on virtual meshes that name the one card once per shard: ``make_mesh()``
+   (every visible card); ``sharded_ilqr_solve`` at phase 9's problem, B=2048 on an (8, 1) mesh, float32,
+   ``linesearch="fused"`` (K4 and K7 once per trip of each shard: 32 each), every lane held to
+   ``batched_ilqr_solve`` at B=2048, solves/s of both; float64 at B=512 on (4, 1) against the unsharded solve
+   (iterations, flags, cost rtol 1e-8, u atol 1e-8); ``sharded_riccati_backward`` on the random LQ problem at
+   H=1,024 on a (1, 8) mesh, tree and ring, float64 against the CPU run (1e-9) and K1 (the JAX test's
+   tolerances), one K8 and one K1 launch per shard and the halo hops of ``halo_schedule_spec``, float32 ms per
+   pass beside K1 and the associative pass; ``podscale_riccati_backward`` at B=4,096, H=1,024, float32 on a
+   (2, 4) mesh against K4 on the same stages (and K1 on three lanes), two K8 launches per shard, ms per pass
+   and peak memory, float64 at B=64, H=256 against the CPU run; ``verify_halo_exchange`` (0.0 clean, 1.0
+   after one flipped bit); and 5 Adam steps of the shipped predictor's width with ``mesh=`` over a (4,) mesh
+   against ``mesh=None`` (dropout 0, TF32 off, losses within 1e-5 relative).
+
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12, 13 and 14)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -227,6 +240,22 @@ TRAINED_HYBRID_STEPS = 10
 
 # The card's peaks (float32 and float64 without tensor cores, HBM3) come from
 # quattro_tpu_torch/utils/roofline.py's "h100-sxm" entry (see bound_ms).
+# Phase 14, the mesh path. Virtual meshes: every shard on the one card.
+MESH_SHARDS = 8
+MESH_F64_BATCH, MESH_F64_SHARDS = 512, 4
+MESH_H = 1024
+POD_BATCH, POD_H = 4096, 1024  # BASELINE.json config 5
+POD_F64_BATCH, POD_F64_H = 64, 256
+MESH_TRAIN_SHARDS, MESH_TRAIN_STEPS, MESH_TRAIN_ROWS = 4, 5, 256
+# tests/test_parallel.py's tolerances: the sharded solve against the unsharded one (float64), the horizon
+# pass against the sequential one (K1 here), the pod-scale pass against per-trajectory passes (K4 here).
+MESH_F64_COST_RTOL, MESH_F64_U_ATOL = 1e-8, 1e-8
+HORIZON_VX_TOL, HORIZON_GAIN_TOL = (1e-4, 1e-5), (1e-3, 1e-5)
+POD_GAIN_TOL, POD_VX_TOL = (2e-3, 1e-5), (1e-3, 1e-5)
+MESH_CPU_REL = 1e-9  # a sharded pass on the card against the same pass on a CPU mesh, float64, normwise
+TREE_RING_REL = 1e-12
+MESH_TRAIN_REL = 1e-5
+
 # queued_ms's sleep kernel: about 3 ms of the card's clock, longer than the host takes to queue 50 calls.
 QUEUE_SLEEP_CYCLES = 5_000_000
 QUEUED = {True: "", False: " (not queued ahead: host gaps count)"}
@@ -1709,6 +1738,213 @@ def phase_train(report, pure_xs):
     return results
 
 
+def random_lq_batch(batch, horizon, dtype, seed=0, n=12, m=4):
+    """``random_lq``'s distribution for a batch of trajectories, drawn on the card from a torch seed."""
+    from quattro_tpu_torch.solver import CostExpansion
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, dtype=dtype, device="cuda")
+    eye = lambda d: torch.eye(d, dtype=dtype, device="cuda")
+    a = eye(n) + 0.01 * randn(batch, horizon, n, n)
+    b = 0.05 * randn(batch, horizon, n, m)
+    l_x, l_u = randn(batch, horizon, n), randn(batch, horizon, m)
+    w = randn(batch, horizon, n, n)
+    l_xx = torch.baddbmm(0.1 * eye(n).expand(batch * horizon, n, n), w.reshape(-1, n, n),
+                         w.reshape(-1, n, n).transpose(1, 2), alpha=0.1).reshape(batch, horizon, n, n)
+    del w
+    exp = CostExpansion(l_x=l_x, l_u=l_u, l_xx=l_xx, l_uu=eye(m).expand(batch, horizon, m, m).contiguous(),
+                        l_ux=0.01 * randn(batch, horizon, m, n))
+    wf = randn(batch, n, n)
+    return a, b, exp, randn(batch, n), wf @ wf.transpose(1, 2) + eye(n)
+
+
+def lanes_of(stages, lanes):
+    from quattro_tpu_torch.solver import CostExpansion
+
+    a, b, exp, v_x, v_xx = stages
+    return a[lanes], b[lanes], CostExpansion(*(e[lanes] for e in exp)), v_x[lanes], v_xx[lanes]
+
+
+def phase_mesh(report):
+    """The device-mesh path: the sharded batch solve, the horizon-partitioned and pod-scale passes with the halo
+    exchange, the halo check and the data-parallel trainer, on virtual meshes of the one card."""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.ops.fused_riccati import riccati_backward_batched_fused_auto
+    from quattro_tpu_torch.parallel import (
+        batched_ilqr_solve, collectives, make_mesh, podscale_riccati_backward, sharded_ilqr_solve,
+        sharded_riccati_backward,
+    )
+    from quattro_tpu_torch.parallel.horizon import halo_schedule_spec
+    from quattro_tpu_torch.solver import ILQRConfig, riccati_backward_associative, riccati_backward_fused
+    from quattro_tpu_torch.training import GainDataset, TrainConfig, train_gain_predictor
+    from quattro_tpu_torch.utils import verify_halo_exchange
+
+    results = {}
+    start_phase = time.perf_counter()
+    default = make_mesh()
+    if default.size != torch.cuda.device_count() or any(d.type != "cuda" for d in default.devices.reshape(-1)):
+        raise AssertionError(f"make_mesh() is not every visible card: {default}")
+    virtual = lambda shape, names=("traj", "horizon"): make_mesh(shape, names, devices=["cuda:0"] * int(np.prod(shape)))
+    log(f"mesh: make_mesh() {default.shape} over {[str(d) for d in default.devices.reshape(-1)]}; virtual meshes "
+        f"name cuda:0 once per shard")
+
+    # The sharded batch solve, float32: K4 and K7 once per trip of each shard.
+    batch = BATCHES[-1]
+    problem = suite_batch(torch.float32, batch)
+    cfg = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS, linesearch="fused")
+    mesh = virtual((MESH_SHARDS, 1))
+    sharded, counts = counted((K4, K7), report, lambda: sharded_ilqr_solve(*problem, mesh, cfg))
+    expected = MESH_SHARDS * BATCH_ITERS
+    plain = batched_ilqr_solve(*problem, cfg)
+    same = bool(torch.equal(sharded.iterations, plain.iterations) and torch.equal(sharded.converged, plain.converged))
+    cost_rel = float(((sharded.cost - plain.cost).abs() / plain.cost.abs()).max())
+    u_abs = float((sharded.u_seq - plain.u_seq).abs().max())
+    bitwise = float((sharded.u_seq == plain.u_seq).flatten(1).all(dim=1).float().mean())
+    rates = {}
+    for label, fn in (("sharded", lambda: sharded_ilqr_solve(*problem, mesh, cfg)),
+                      ("unsharded", lambda: batched_ilqr_solve(*problem, cfg))):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates[label] = batch / (time.perf_counter() - start)
+    log(f"sharded solve B={batch} float32 on {mesh.shape}: launches {counts} (expected {expected} each); every lane "
+        f"against batched_ilqr_solve: iterations/flags equal {same}, max cost rel {cost_rel:.3e} (bound "
+        f"{F32_SOLVE_COST_REL}), max |du| {u_abs:.3e} (bound {F32_SOLVE_U_ABS}), lanes bit for bit {bitwise:.4f}; "
+        f"solves/s sharded {rates['sharded']:.1f}, unsharded {rates['unsharded']:.1f}")
+    if counts != {K4: expected, K7: expected} or not (same and cost_rel <= F32_SOLVE_COST_REL
+                                                      and u_abs <= F32_SOLVE_U_ABS):
+        raise AssertionError("sharded solve float32: launches or lanes differ from the unsharded solve")
+    results["solve_f32"] = dict(launches=counts, cost_rel=cost_rel, u_abs=u_abs, bitwise_share=bitwise,
+                                solves_per_s=rates)
+
+    # Float64 on a (4, 1) mesh: the "auto" dispatch takes the "vmap" backend there.
+    problem = suite_batch(torch.float64, MESH_F64_BATCH)
+    cfg = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS)
+    sharded, counts = counted((), report, lambda: sharded_ilqr_solve(*problem, virtual((MESH_F64_SHARDS, 1)), cfg))
+    plain = batched_ilqr_solve(*problem, cfg)
+    same = bool(torch.equal(sharded.iterations, plain.iterations) and torch.equal(sharded.converged, plain.converged))
+    cost_rel = float(((sharded.cost - plain.cost).abs() / plain.cost.abs()).max())
+    u_abs = float((sharded.u_seq - plain.u_seq).abs().max())
+    log(f"sharded solve B={MESH_F64_BATCH} float64 on ({MESH_F64_SHARDS}, 1): iterations/flags equal {same}, cost "
+        f"rel {cost_rel:.3e} (bound {MESH_F64_COST_RTOL}), max |du| {u_abs:.3e} (bound {MESH_F64_U_ATOL})")
+    if not (same and cost_rel <= MESH_F64_COST_RTOL and u_abs <= MESH_F64_U_ATOL):
+        raise AssertionError("sharded solve float64 differs from the unsharded solve")
+    results["solve_f64"] = dict(cost_rel=cost_rel, u_abs=u_abs)
+
+    # The horizon-partitioned pass: one K8 and one K1 launch per shard, the halo hops of the spec.
+    mesh = virtual((1, MESH_SHARDS))
+    cpu_mesh = make_mesh((1, MESH_SHARDS), devices=["cpu"] * MESH_SHARDS)
+    stages = random_lq(MESH_H, torch.float64)
+    k1 = riccati_backward_fused(*stages, 1e-6)
+    passes = {}
+    for mode in ("tree", "ring"):
+        collectives.hops.reset()
+        out, counts = counted((K8, K1), report, lambda: sharded_riccati_backward(mesh, *stages, scan_mode=mode))
+        hops = (collectives.hops.rounds, list(collectives.hops.bytes_per_hop))
+        spec = halo_schedule_spec(12, torch.float64, MESH_SHARDS, mode)
+        ref = sharded_riccati_backward(cpu_mesh, *to_cpu(stages), scan_mode=mode)
+        errs = rel_errs(("k", "K", "V_x", "V_xx"), [o.cpu() for o in out], ref)
+        near = (within(out.v_x_seq, k1.v_x_seq, *HORIZON_VX_TOL) and within(out.k_seq, k1.k_seq, *HORIZON_GAIN_TOL)
+                and within(out.big_k_seq, k1.big_k_seq, *HORIZON_GAIN_TOL))
+        log(f"horizon pass H={MESH_H} float64 {mode} on (1, {MESH_SHARDS}): launches {counts}; hops {hops[0]} of "
+            f"{sorted(set(hops[1]))} bytes (spec {spec['rounds']} of {spec['payload_bytes_per_hop']}); card against "
+            f"CPU {errs} (bound {MESH_CPU_REL}); within the sequential pass's tolerances of K1: {near} (max |dk| "
+            f"{float((out.k_seq - k1.k_seq).abs().max()):.2e})")
+        check(f"horizon pass {mode}, card against CPU", errs, MESH_CPU_REL)
+        if counts != {K8: MESH_SHARDS, K1: MESH_SHARDS} or not near or hops != (
+                spec["rounds"], [spec["payload_bytes_per_hop"]] * spec["rounds"]):
+            raise AssertionError(f"horizon pass {mode}: launches {counts}, hops {hops}, near K1 {near}")
+        passes[mode] = out
+    tree_ring = max(rel_err(t, r) for t, r in zip(passes["tree"], passes["ring"]))
+    log(f"horizon pass: tree against ring {tree_ring:.3e} (bound {TREE_RING_REL})")
+    if not tree_ring <= TREE_RING_REL:
+        raise AssertionError(f"horizon pass: tree and ring disagree ({tree_ring})")
+    stages32 = random_lq(MESH_H, torch.float32)
+    # One pass each: nothing compiles on the first float32 call (the kernels are built, the rest is eager).
+    timing = dict(horizon_tree_ms=time_ms(lambda: sharded_riccati_backward(mesh, *stages32), 1, warm=False),
+                  horizon_ring_ms=time_ms(lambda: sharded_riccati_backward(mesh, *stages32, scan_mode="ring"), 1,
+                                          warm=False),
+                  k1_ms=time_ms(lambda: riccati_backward_fused(*stages32, 1e-6), 20),
+                  assoc_ms=time_ms(lambda: riccati_backward_associative(*stages32, 1e-6), 2))
+    log(f"horizon pass H={MESH_H} float32 ms per pass: tree {timing['horizon_tree_ms']:.2f}, ring "
+        f"{timing['horizon_ring_ms']:.2f}; K1 {timing['k1_ms']:.4f}; associative pass {timing['assoc_ms']:.2f}")
+    results["horizon"] = dict(tree_ring_rel=tree_ring, **timing)
+
+    # The pod-scale pass at BASELINE config 5's size: two K8 launches per shard.
+    mesh = virtual((2, 4))
+    stages = random_lq_batch(POD_BATCH, POD_H, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()  # the pass is timed once, as it runs on the main path (its allocations included)
+    pod, counts = counted((K8,), report, lambda: podscale_riccati_backward(mesh, *stages))
+    pod_ms = 1e3 * (time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated()
+    k4 = riccati_backward_batched_fused_auto(*stages, 1e-6)
+    gains_near = within(pod.k_seq, k4[0], *POD_GAIN_TOL) and within(pod.big_k_seq, k4[1], *POD_GAIN_TOL)
+    lanes = (0, POD_BATCH // 2, POD_BATCH - 1)
+    vx_near = all(within(pod.v_x_seq[i], riccati_backward_fused(*lanes_of(stages, i), 1e-6).v_x_seq, *POD_VX_TOL)
+                  for i in lanes)
+    gain_err = float((pod.k_seq - k4[0]).abs().max())
+    del pod, k4
+    k4_ms = time_ms(lambda: riccati_backward_batched_fused_auto(*stages, 1e-6), 3)
+    log(f"pod-scale pass B={POD_BATCH} H={POD_H} float32 on (2, 4): launches {counts} (expected {{K8: 16}}); gains "
+        f"within rtol {POD_GAIN_TOL[0]}, atol {POD_GAIN_TOL[1]} of K4 on the same stages: {gains_near} (max |dk| "
+        f"{gain_err:.2e}); V_x of lanes {lanes} within rtol {POD_VX_TOL[0]}, atol {POD_VX_TOL[1]} of K1: {vx_near}; "
+        f"{pod_ms:.1f} ms per pass, K4 {k4_ms:.3f} ms; peak memory {peak} bytes")
+    if counts != {K8: 16} or not (gains_near and vx_near):
+        raise AssertionError(f"pod-scale pass: launches {counts}, gains near K4 {gains_near}, V_x near K1 {vx_near}")
+    del stages
+    stages = random_lq_batch(POD_F64_BATCH, POD_F64_H, torch.float64, seed=1)
+    out, counts = counted((K8,), report, lambda: podscale_riccati_backward(mesh, *stages))
+    ref = podscale_riccati_backward(make_mesh((2, 4), devices=["cpu"] * 8), *to_cpu(stages))
+    errs = rel_errs(("k", "K", "V_x", "V_xx"), [o.cpu() for o in out], ref)
+    log(f"pod-scale pass B={POD_F64_BATCH} H={POD_F64_H} float64: card against CPU {errs} (bound {MESH_CPU_REL}); "
+        f"launches {counts}")
+    check("pod-scale pass float64, card against CPU", errs, MESH_CPU_REL)
+    results["podscale"] = dict(ms=pod_ms, k4_ms=k4_ms, peak_bytes=peak, gain_abs=gain_err)
+
+    # The halo check on the card.
+    mesh = virtual((MESH_SHARDS,), ("horizon",))
+    comm = collectives.AxisComm(mesh, "horizon", mesh.coords(("horizon",)))
+    a, b = stages[0][0], stages[1][0]
+    sent = {c: (a[c[0]], b[c[0]]) for c in comm.local}
+    perm = [(i, (i - 1) % MESH_SHARDS) for i in range(MESH_SHARDS)]
+    received = comm.ppermute(sent, perm)
+    clean = [float(v) for v in verify_halo_exchange(sent, received, comm, perm).values()]
+    bad = received[(3,)][0].clone()
+    bad.view(torch.int64)[5, 7] ^= 1
+    received[(3,)] = (bad, received[(3,)][1])
+    flagged = [float(v) for v in verify_halo_exchange(sent, received, comm, perm).values()]
+    log(f"halo check: clean {clean}; one bit flipped on shard 3 {flagged}")
+    if clean != [0.0] * MESH_SHARDS or flagged != [1.0 if i == 3 else 0.0 for i in range(MESH_SHARDS)]:
+        raise AssertionError("halo check: wrong flags")
+
+    # The data-parallel trainer: the shipped predictor's width, mesh= against mesh=None.
+    rng = np.random.default_rng(3)
+    data = GainDataset(rng.standard_normal((MESH_TRAIN_ROWS, TRAIN_H + 1, 12)).astype(np.float32),
+                       rng.standard_normal((MESH_TRAIN_ROWS, TRAIN_H, 52)).astype(np.float32))
+    config = TrainConfig(num_epochs=MESH_TRAIN_STEPS, batch_size=MESH_TRAIN_ROWS, lr_schedule="cosine")
+    losses, seconds = {}, {}
+    for label, train_mesh in (("mesh=None", None), ("mesh", virtual((MESH_TRAIN_SHARDS,), ("data",)))):
+        pred = GainPredictor.create(12, 52, prompt_len=1, target_len=TRAIN_H - 1, d_model=128, nhead=4,
+                                    num_decoder_layers=3, dim_feedforward=512, dropout=0.0, max_seq_len=110,
+                                    generator=torch.Generator().manual_seed(0), device="cuda")
+        start = time.perf_counter()
+        res, _ = counted((), report, lambda: train_gain_predictor(pred, data, None, config, mesh=train_mesh))
+        seconds[label] = time.perf_counter() - start
+        losses[label] = res.train_loss_history.tolist()
+    step_rel = max(abs(x - y) / abs(y) for x, y in zip(losses["mesh"], losses["mesh=None"]))
+    log(f"data-parallel training ({SHIPPED_PARAMS} parameters, {MESH_TRAIN_STEPS} steps of {MESH_TRAIN_ROWS} rows) "
+        f"on ({MESH_TRAIN_SHARDS},) against mesh=None: losses {losses['mesh']} and {losses['mesh=None']}, max rel "
+        f"{step_rel:.3e} (bound {MESH_TRAIN_REL}); seconds {seconds}")
+    if not (len(losses["mesh"]) == MESH_TRAIN_STEPS and step_rel <= MESH_TRAIN_REL):
+        raise AssertionError(f"data-parallel training differs from mesh=None ({step_rel})")
+    results["train"] = dict(step_rel=step_rel, seconds=seconds)
+    results["seconds"] = time.perf_counter() - start_phase
+    log(f"mesh phase: {results['seconds']:.1f} s")
+    return results
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1750,10 +1986,11 @@ def main() -> int:
     mega = phase_megakernel(report)
     assoc = phase_assoc(report, pure_xs)
     train = phase_train(report, pure_xs)
+    mesh = phase_mesh(report)
     log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
                                 "k67_timing": k67_times, "bench_iters_per_s": rates,
                                 "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc,
-                                "train": train}}))
+                                "train": train, "mesh": mesh, "wall_s": time.perf_counter() - _START}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {

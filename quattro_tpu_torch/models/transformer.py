@@ -14,33 +14,42 @@ Dropout sits where the JAX model applies ``nn.Dropout``: after the positional
 encoding, on the attention output, on the FFN's hidden activation and on its
 output. It acts only in training mode (``module.train()``), with flax's law:
 keep with probability 1 - p, kept values scaled by 1/(1 - p). The masks come
-from the ``generator`` passed to ``forward`` (the trainer's, seeded from its
-config). In eval mode dropout returns its input as it is.
+from the ``rand`` function passed to ``forward``: ``rand(shape, device)``
+gives the uniforms of one site (the trainer builds it from its generator,
+seeded from its config); without one they come from torch's global
+generator. In eval mode dropout returns its input as it is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 
-def _keep_mask(shape, keep_prob: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Bernoulli(keep_prob) keep mask of ``shape`` drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+Rand = Callable[[tuple, torch.device], torch.Tensor]  # rand(shape, device): uniforms on [0, 1)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def _global_rand(shape, device) -> torch.Tensor:
+    return torch.rand(shape, device=device)
+
+
+def _keep_mask(shape, keep_prob: float, rand: Optional[Rand], device) -> torch.Tensor:
+    """Bernoulli(keep_prob) keep mask of ``shape`` from the uniforms that ``rand`` gives."""
+    return (rand or _global_rand)(shape, device) < keep_prob
+
+
+def dropout(x: torch.Tensor, rate: float, rand: Optional[Rand] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in training mode: zero with probability ``rate``, scale the rest by 1/(1 - rate)."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = _keep_mask(x.shape, keep_prob, generator, x.device)
+    keep = _keep_mask(x.shape, keep_prob, rand, x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -91,11 +100,11 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, rand: Optional[Rand] = None) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
-        x = self.norm1(x + dropout(self.self_attn(x, mask), rate, generator))
-        hidden = dropout(torch.relu(self.linear1(x)), rate, generator)
-        return self.norm2(x + dropout(self.linear2(hidden), rate, generator))
+        x = self.norm1(x + dropout(self.self_attn(x, mask), rate, rand))
+        hidden = dropout(torch.relu(self.linear1(x)), rate, rand)
+        return self.norm2(x + dropout(self.linear2(hidden), rate, rand))
 
 
 class TransformerPredictor(nn.Module):
@@ -144,19 +153,19 @@ class TransformerPredictor(nn.Module):
                     module.bias.zero_()
 
     def forward(
-        self, x_seq: torch.Tensor, u_prompt: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x_seq: torch.Tensor, u_prompt: torch.Tensor, rand: Optional[Rand] = None
     ) -> torch.Tensor:
         """(B, T, state_dim), (B, prompt_len, control_dim) -> (B, target_len, control_dim).
 
-        ``generator`` draws the dropout masks in training mode; eval mode ignores it.
+        ``rand(shape, device)`` gives the dropout uniforms in training mode; eval mode ignores it.
         """
         batch = x_seq.shape[0]
         target = self.target_embedding[None].expand(batch, -1, -1)
         full = torch.cat([self.state_embed(x_seq), self.control_embed(u_prompt), target], dim=1)
         seq_len = full.shape[1]
         full = full + self.positions[None, :seq_len].to(full.dtype)
-        full = dropout(full, self.hparams["dropout"] if self.training else 0.0, generator)
+        full = dropout(full, self.hparams["dropout"] if self.training else 0.0, rand)
         causal = torch.triu(torch.ones(seq_len, seq_len, dtype=torch.bool, device=full.device), diagonal=1)
         for layer in self.layers:
-            full = layer(full, causal[None, None], generator)
+            full = layer(full, causal[None, None], rand)
         return self.output_linear(full[:, -self.target_len :])

@@ -20,8 +20,8 @@ launch per trip (kernel K7, ``solver/rollout.py::line_search_batched_fused``).
 ``batched_ilqr_solve_with_logs`` runs the same loop and also writes each
 trip's entry into per-lane log buffers (the training-data collection's solve).
 
-``sharded_ilqr_solve`` (a device mesh) is not ported yet: ROADMAP.md, Queue 1
-item 7.
+``sharded_ilqr_solve`` cuts the batch over a device mesh and runs
+``batched_ilqr_solve`` on each shard.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 from torch.func import vmap
 
 from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
+from quattro_tpu_torch.parallel.mesh import GlobalArray, Mesh, assemble, shard
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
 from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRLogs, ILQRSolution, _backward, empty_logs
 from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward_associative
@@ -296,3 +297,51 @@ def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: IL
         iters = iters + active.to(iters.dtype)
         trip += 1
     return ILQRSolution(xs, us, cs, iters, done, ks, big_ks)
+
+
+def sharded_ilqr_solve(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0_batch,  # (B, n): a tensor or a GlobalArray laid out by (axis,)
+    u_init_batch,  # (B, H, m), likewise
+    mesh: Mesh,
+    config: ILQRConfig = ILQRConfig(),
+    axis: str = "traj",
+) -> ILQRSolution:
+    """Batch solve with the batch axis sharded over ``axis`` of the mesh.
+
+    B must be divisible by the axis size. Each shard runs
+    ``batched_ilqr_solve`` on its own lanes, on its own device, with no
+    communication: the auto dispatch sees the local width (on CUDA, float32
+    shards of 8 lanes or more take K4, and K7 with ``linesearch="fused"``,
+    one launch each per trip of the shard), and each shard iterates until
+    its own lanes are done. Both match ``batched_ilqr_solve`` lane for lane.
+
+    The shards a process holds must all lie on one device (a virtual mesh,
+    or one card per process through ``distributed.global_mesh``):
+    ``dynamics``, ``cost`` and ``final_cost`` keep the tensors they hold on
+    the device they were built on, and the shards run one after another, so
+    several cards in one process would not overlap. Such a mesh raises a
+    ``ValueError``.
+
+    Returns the solution gathered back along the batch axis on
+    ``x0_batch``'s device, or, for ``GlobalArray`` inputs, each field as a
+    ``GlobalArray`` of this process's shards.
+    """
+    coords = mesh.coords((axis,))
+    devices = sorted({str(mesh.device(c)) for c in coords if mesh.is_local(c)})
+    if len(devices) > 1:
+        raise ValueError(f"sharded_ilqr_solve runs the shards of one process on one device, but this process's "
+                         f"shards of axis {axis!r} lie on {devices}: run one process per device "
+                         "(distributed.global_mesh) or a virtual mesh over one device")
+    x0s, us = shard(x0_batch, mesh, (axis,), coords), shard(u_init_batch, mesh, (axis,), coords)
+    sols = {c: batched_ilqr_solve(dynamics, cost, final_cost, x0s[c], us[c], config) for c in x0s}
+    fields = [{c: sol[i] for c, sol in sols.items()} for i in range(len(ILQRSolution._fields))]
+    if isinstance(x0_batch, GlobalArray):
+        batch, n = x0_batch.shape
+        horizon, m = u_init_batch.shape[1:]
+        shapes = ((batch, horizon + 1, n), (batch, horizon, m), (batch,), (batch,), (batch,), (batch, horizon, m),
+                  (batch, horizon, m, n))
+        return ILQRSolution(*(GlobalArray(f, mesh, (axis,), s) for f, s in zip(fields, shapes)))
+    return ILQRSolution(*(assemble(f, mesh, (axis,), x0_batch.device) for f in fields))

@@ -402,17 +402,35 @@ def riccati_backward_associative(
     adaptive mu-schedule).
     """
     v_x_seq, v_xx_seq = suffix_value_functions(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg)
+    k_seq, big_k_seq = _gains(a_seq, b_seq, cost_exp, v_x_seq[..., 1:, :], v_xx_seq[..., 1:, :, :], reg, use_chol)
+    return RiccatiResult(k_seq, big_k_seq, v_x_seq, v_xx_seq)
+
+
+def _gains(
+    a_seq: torch.Tensor,
+    b_seq: torch.Tensor,
+    cost_exp: CostExpansion,
+    v_x_next: torch.Tensor,
+    v_xx_next: torch.Tensor,
+    reg: Reg,
+    use_chol: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(k, K)`` of every stage from the value function one step later, over any leading axes.
+
+    The Q expansion as batched tensor code and one SPD solve of
+    ``Q_uu + reg I`` against ``[Q_u | Q_ux]`` over all systems: one K8 launch
+    on CUDA (``torch.linalg.solve`` with ``use_chol=False``).
+    """
     _, l_u, _, l_uu, l_ux = cost_exp
     m = l_uu.shape[-1]
-    v_x, v_xx = v_x_seq[..., 1:, :], v_xx_seq[..., 1:, :, :]
     b_t = _tr(b_seq)
-    q_u = l_u + _mv(b_t, v_x)
-    q_ux = l_ux + b_t @ v_xx @ a_seq
-    q_uu = l_uu + b_t @ v_xx @ b_seq
+    q_u = l_u + _mv(b_t, v_x_next)
+    q_ux = l_ux + b_t @ v_xx_next @ a_seq
+    q_uu = l_uu + b_t @ v_xx_next @ b_seq
     rhs = torch.cat([q_u[..., None], q_ux], dim=-1)  # (..., H, m, 1+n)
     q_uu_reg = q_uu + _reg_eye(reg, m, q_uu)
     sol = -(_spd_solve(q_uu_reg, rhs) if use_chol else torch.linalg.solve(q_uu_reg, rhs))
-    return RiccatiResult(sol[..., 0], sol[..., 1:], v_x_seq, v_xx_seq)
+    return sol[..., 0], sol[..., 1:]
 
 
 def riccati_backward_fused(

@@ -19,8 +19,13 @@ the epoch permutations from a CPU generator (so every data source sees the
 same batches in the same order), the dropout masks from one on the model's
 device. The JAX trainer's ``jax.random`` streams cannot be reproduced here.
 
-Data parallelism over a device mesh (``mesh=``) comes with the port of
-``parallel/`` (ROADMAP.md, Queue 1 item 7).
+``mesh=``: data-parallel training over a device mesh (``parallel/mesh.py``).
+Each minibatch is cut over the mesh's first axis; the module and its Adam
+state are replicated on the mesh's devices; each shard's gradient, weighted
+by its share of the rows, is summed over the shards (an ``all_reduce`` across
+processes) and every replica takes the same Adam step. The dropout masks are
+drawn for the whole minibatch and cut like it, so a step equals the step
+with ``mesh=None`` up to the summation order.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from quattro_tpu_torch.models.gain_predictor import GainPredictor
 from quattro_tpu_torch.models.normalizer import DataNormalizer
+from quattro_tpu_torch.parallel.collectives import AxisComm
 from quattro_tpu_torch.training.collect import DeviceGainDataset, GainDataset
 
 _EVAL_CHUNK = 4096
@@ -94,10 +100,13 @@ def _make_optimizer(module: torch.nn.Module, config: TrainConfig, steps_per_epoc
     raise ValueError(f"Unknown lr_schedule: {config.lr_schedule!r} (constant|cosine)")
 
 
-def _train_step(module, optimizer, scheduler, xb, pb, tb, generator=None) -> torch.Tensor:
-    """One Adam step on the MSE of a minibatch; returns the loss before the step (a device scalar)."""
+def _train_step(module, optimizer, scheduler, xb, pb, tb, rand=None) -> torch.Tensor:
+    """One Adam step on the MSE of a minibatch; returns the loss before the step (a device scalar).
+
+    ``rand(shape, device)`` gives the dropout uniforms (``models/transformer.py``).
+    """
     optimizer.zero_grad(set_to_none=True)
-    loss = torch.mean((module(xb, pb, generator) - tb) ** 2)
+    loss = torch.mean((module(xb, pb, rand) - tb) ** 2)
     loss.backward()
     optimizer.step()
     if scheduler is not None:
@@ -135,13 +144,16 @@ def train_gain_predictor(
     ``train_data``/``test_data``: an in-memory ``GainDataset``, a streamed
     ``ShardDataset`` or a ``DeviceGainDataset`` (the device-resident path).
     Training runs on the predictor's device, in its parameters' dtype.
+    ``mesh``: a ``parallel.mesh.Mesh`` for data-parallel training (the
+    minibatch cut over its first axis, the parameters replicated; see the
+    module docstring); not with a ``DeviceGainDataset``.
     """
-    if mesh is not None:
-        raise ValueError(
-            "mesh= data parallelism comes with the port of parallel/ (ROADMAP.md, Queue 1 item 7); "
-            "pass mesh=None"
-        )
     if isinstance(train_data, DeviceGainDataset):
+        if mesh is not None:
+            raise ValueError(
+                "mesh= data parallelism is not wired into the device-resident path; pass a "
+                "GainDataset/ShardDataset for data-parallel training, or mesh=None here"
+            )
         return _train_device_resident(predictor, train_data, test_data, config)
 
     param = next(predictor.module.parameters())
@@ -157,6 +169,15 @@ def train_gain_predictor(
         normalizer = _cast(fitted, dtype, dev)
         x, prompt, target = _prepare(train_data, normalizer, prompt_len, stride)
         num_rows = x.shape[0]
+    if mesh is not None:
+        axis = mesh.axis_names[0]
+        # The batch actually fed: with fewer rows than batch_size the one batch per epoch is the whole dataset.
+        effective_batch = min(config.batch_size, num_rows)
+        if effective_batch % mesh.shape[axis] != 0:
+            raise ValueError(
+                f"effective batch {effective_batch} (batch_size {config.batch_size}, dataset rows {num_rows}) "
+                f"not divisible by mesh axis {axis!r} size {mesh.shape[axis]}"
+            )
 
     def streamed_batch(source, idx):
         xb_np, kb_np = source.gather(np.asarray(idx))
@@ -186,7 +207,7 @@ def train_gain_predictor(
             return float(total / n_test)
 
     return _fit(predictor, normalizer, num_rows, get_batch, test_loss, config,
-                index_device=torch.device("cpu") if streamed else dev)
+                index_device=torch.device("cpu") if streamed else dev, mesh=mesh)
 
 
 def _fit_normalizer_flat(x_flat, kk_flat, x_shape, kk_shape) -> DataNormalizer:
@@ -257,14 +278,15 @@ def _train_device_resident(
 
 
 def _fit(predictor: GainPredictor, normalizer: DataNormalizer, num_rows: int, get_batch, test_loss,
-         config: TrainConfig, index_device) -> TrainResult:
+         config: TrainConfig, index_device, mesh=None) -> TrainResult:
     """The epoch loop shared by every data source.
 
     ``get_batch(idx)`` returns the normalized ``(x, prompt, target)`` of the
     rows ``idx`` (on ``index_device``); ``test_loss(module)`` the test loss as
     a float, or ``None`` without test data. Each epoch takes
     ``max(num_rows // batch, 1)`` batches of ``batch = min(batch_size,
-    num_rows)`` rows of a fresh permutation.
+    num_rows)`` rows of a fresh permutation. With a ``mesh`` each step is a
+    ``_DataParallel`` step.
     """
     module = copy.deepcopy(predictor.module)
     param = next(module.parameters())
@@ -273,6 +295,7 @@ def _fit(predictor: GainPredictor, normalizer: DataNormalizer, num_rows: int, ge
     optimizer, scheduler = _make_optimizer(module, config, steps_per_epoch)
     perm_gen = torch.Generator().manual_seed(config.seed)
     dropout_gen = torch.Generator(device=param.device).manual_seed(config.seed)
+    rand = lambda shape, device: torch.rand(shape, generator=dropout_gen, device=device)  # noqa: E731
 
     start_epoch = 0
     if config.checkpoint_dir is not None:
@@ -285,6 +308,7 @@ def _fit(predictor: GainPredictor, normalizer: DataNormalizer, num_rows: int, ge
             if scheduler is not None and state["scheduler"] is not None:
                 scheduler.load_state_dict(state["scheduler"])
             start_epoch = state["epoch"]
+    parallel = None if mesh is None else _DataParallel(module, optimizer, scheduler, mesh, config, steps_per_epoch)
 
     best_loss = float("inf")
     best_state = _snapshot(module)
@@ -297,7 +321,10 @@ def _fit(predictor: GainPredictor, normalizer: DataNormalizer, num_rows: int, ge
         total = torch.zeros((), dtype=param.dtype, device=param.device)
         for idx in epoch_idx:
             xb, pb, tb = get_batch(idx)
-            total = total + _train_step(module, optimizer, scheduler, xb, pb, tb, dropout_gen)
+            if parallel is None:
+                total = total + _train_step(module, optimizer, scheduler, xb, pb, tb, rand)
+            else:
+                total = total + parallel.step(xb, pb, tb, _ShardDraws(dropout_gen, xb.shape[0]))
         module.eval()
         train_hist.append(float(total / steps_per_epoch))  # the epoch's one host read
         if config.verbose:
@@ -321,6 +348,88 @@ def _fit(predictor: GainPredictor, normalizer: DataNormalizer, num_rows: int, ge
 
     trained = GainPredictor(module, normalizer, predictor.state_stride)
     return TrainResult(trained, np.asarray(train_hist), np.asarray(test_hist))
+
+
+class _ShardDraws:
+    """The dropout draws of a whole minibatch, handed to each shard as its rows.
+
+    The model draws its masks site by site through ``rand``
+    (``models/transformer.py``). The first shard to reach a site draws that
+    site's uniforms for the whole minibatch from the trainer's generator, in
+    the order and the shapes of the step with ``mesh=None``; every shard
+    takes its rows of them.
+    """
+
+    def __init__(self, generator: torch.Generator, batch: int):
+        self.generator, self.batch = generator, batch
+        self.draws = []
+        self.rows, self.site = slice(None), 0
+
+    def shard(self, rows: slice) -> "_ShardDraws":
+        """Start a shard's forward pass over the minibatch's ``rows``."""
+        self.rows, self.site = rows, 0
+        return self
+
+    def rand(self, shape, device) -> torch.Tensor:
+        if self.site == len(self.draws):
+            self.draws.append(torch.rand((self.batch,) + tuple(shape[1:]), generator=self.generator,
+                                         device=self.generator.device))
+        draw = self.draws[self.site][self.rows]
+        self.site += 1
+        return draw.to(device)
+
+
+class _DataParallel:
+    """The module replicated on the devices of the mesh's first axis, each replica stepped with the summed gradient.
+
+    ``module`` (with ``optimizer`` and ``scheduler``) stays the replica on its
+    own device; every other device the shards of this process use gets a
+    copy with a copy of the optimizer state. A step cuts the minibatch into
+    the axis's shards, takes each shard's gradient of its loss weighted by
+    its share of the rows, sums them with ``AxisComm.psum`` and steps every
+    replica with the sum.
+    """
+
+    def __init__(self, module, optimizer, scheduler, mesh, config: TrainConfig, steps_per_epoch: int):
+        axis = mesh.axis_names[0]
+        self.mesh = mesh
+        self.comm = AxisComm(mesh, axis, mesh.coords((axis,)))
+        self.home = next(module.parameters()).device
+        self.replicas = {self.home: (module, optimizer, scheduler)}
+        for c in self.comm.local:
+            dev = mesh.device(c)
+            if dev not in self.replicas:
+                copy_module = copy.deepcopy(module).to(dev)
+                copy_opt, copy_sched = _make_optimizer(copy_module, config, steps_per_epoch)
+                copy_opt.load_state_dict(optimizer.state_dict())
+                if copy_sched is not None:
+                    copy_sched.load_state_dict(scheduler.state_dict())
+                self.replicas[dev] = (copy_module, copy_opt, copy_sched)
+
+    def step(self, xb, pb, tb, draws: _ShardDraws) -> torch.Tensor:
+        """One Adam step on the minibatch's MSE; returns the loss before the step (a scalar on the home device)."""
+        batch = xb.shape[0]
+        rows = batch // self.comm.size
+        values = {}
+        for c in self.comm.local:
+            dev = self.mesh.device(c)
+            module = self.replicas[dev][0]
+            sl = slice(self.comm.axis_index(c) * rows, (self.comm.axis_index(c) + 1) * rows)
+            pred = module(xb[sl].to(dev), pb[sl].to(dev), draws.shard(sl).rand)
+            loss = torch.mean((pred - tb[sl].to(dev)) ** 2) * (rows / batch)
+            params = list(module.parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            values[c] = ([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)], loss.detach())
+        summed = self.comm.psum(values)
+        grads, loss = summed[self.comm.local[0]]
+        for dev, (module, optimizer, scheduler) in self.replicas.items():
+            optimizer.zero_grad(set_to_none=True)
+            for p, g in zip(module.parameters(), grads):
+                p.grad = g.to(dev)
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+        return loss.to(self.home)
 
 
 def _snapshot(module: torch.nn.Module):

@@ -1,10 +1,9 @@
 """Observability: phase timing, profiler scopes, metrics IO, roofline counts, debug checks.
 
-Counterpart of ``quattro_tpu.utils``. ``verify_halo_exchange`` comes with the
-port of ``parallel/horizon.py`` (ROADMAP.md, Queue 1 item 8).
+Counterpart of ``quattro_tpu.utils``.
 """
 
-from quattro_tpu_torch.utils.debug import nan_guard, tree_checksum
+from quattro_tpu_torch.utils.debug import nan_guard, tree_checksum, verify_halo_exchange
 from quattro_tpu_torch.utils.metrics import (
     JsonlLogger,
     load_dataset_shards,
@@ -16,6 +15,7 @@ from quattro_tpu_torch.utils.timing import PhaseTimer, block_nnz_per_sec, device
 __all__ = [
     "nan_guard",
     "tree_checksum",
+    "verify_halo_exchange",
     "JsonlLogger",
     "load_dataset_shards",
     "save_dataset_shard",

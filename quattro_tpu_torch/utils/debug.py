@@ -1,11 +1,11 @@
-"""Debug and validation aids: a non-finite guard and exact tensor checksums.
+"""Debug and validation aids: a non-finite guard, exact tensor checksums and the halo check.
 
 Counterpart of ``quattro_tpu/utils/debug.py``. ``nan_guard`` plays the part of
 ``jax.debug_nans``: it raises at the first operation whose floating output is
 not finite. ``tree_checksum`` sums the leaves' bit patterns modulo 2^32 and
 gives the JAX function's value on the same arrays. ``verify_halo_exchange``
-(a checksum carried beside a horizon shard's halo) comes with the port of
-``parallel/horizon.py`` (ROADMAP.md, Queue 1 item 8).
+checks a ``ppermute`` hop of the horizon shards' halo by a checksum that
+travels by a hop of its own.
 """
 
 from __future__ import annotations
@@ -68,3 +68,20 @@ def tree_checksum(tree) -> torch.Tensor:
         part = words.sum() & _MASK32
         total = part if total is None else (total + part.to(total.device)) & _MASK32
     return torch.zeros((), dtype=torch.int64) if total is None else total
+
+
+def verify_halo_exchange(sent: dict, received: dict, comm, perm) -> dict:
+    """Check a payload ``ppermute`` by an independent checksum hop.
+
+    ``sent`` and ``received`` map each shard this process holds (by mesh
+    coordinate) to its outgoing payload and to what the data-path
+    ``comm.ppermute(sent, perm)`` delivered to it; ``comm`` is the
+    ``parallel.collectives.AxisComm`` of that hop. Each shard's
+    ``tree_checksum`` travels through its own ``ppermute``; where the data
+    path corrupted or misrouted the payload the two disagree. Returns, per
+    shard, a float32 0-d tensor: 0.0 when consistent, 1.0 on a mismatch.
+    Debug-only: costs one extra scalar hop.
+    """
+    expected = comm.ppermute({c: tree_checksum(tree) for c, tree in sent.items()}, perm)
+    return {c: torch.where(expected[c] == tree_checksum(tree).to(expected[c].device), 0.0, 1.0).to(torch.float32)
+            for c, tree in received.items()}

@@ -1032,3 +1032,130 @@ def test_training_step_on_card_matches_cpu(cuda_device):
         results[device.type] = [float(_train_step(module, optimizer, scheduler, *(t.to(device) for t in b)))
                                  for b in batches]
     np.testing.assert_allclose(results["cuda"], results["cpu"], rtol=1e-4)
+
+
+def cuda_mesh(device, shape, names):
+    """A virtual mesh: the one card named once per shard."""
+    from quattro_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, names, devices=[device] * int(np.prod(shape)))
+
+
+def _moved(data, device):
+    a, b, exp, v_x, v_xx = data
+    return a.to(device), b.to(device), CostExpansion(*(e.to(device) for e in exp)), v_x.to(device), v_xx.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tree", "ring"])
+def test_horizon_pass_on_card_matches_cpu(cuda_device, mode):
+    """The horizon-partitioned pass on a virtual 4-shard mesh of the card against the same pass on a CPU mesh
+    (float64, rtol 1e-9): one K8 and one K1 launch per shard, and the halo hops of ``halo_schedule_spec``."""
+    from quattro_tpu_torch.parallel import collectives, make_mesh, sharded_riccati_backward
+    from quattro_tpu_torch.parallel.horizon import halo_schedule_spec
+
+    data = riccati_stages("cpu", seed=41, horizon=64)
+    ref = sharded_riccati_backward(make_mesh((4,), ("horizon",), devices=["cpu"] * 4), *data, scan_mode=mode)
+    _build.reset_launches()
+    collectives.hops.reset()
+    out = sharded_riccati_backward(cuda_mesh(cuda_device, (4,), ("horizon",)), *_moved(data, cuda_device),
+                                   scan_mode=mode)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {smallchol.KERNEL: 4, fused_riccati.KERNEL: 4}
+    spec = halo_schedule_spec(12, torch.float64, 4, mode)
+    assert collectives.hops.rounds == spec["rounds"]
+    assert collectives.hops.bytes_per_hop == [spec["payload_bytes_per_hop"]] * spec["rounds"]
+    assert all(t.is_cuda for t in out)
+    _close_all(ref, out)
+
+
+@pytest.mark.cuda
+def test_podscale_on_card_matches_cpu(cuda_device):
+    """The pod-scale pass on a virtual (2, 2) mesh of the card against the CPU mesh (float64, rtol 1e-9): two K8
+    launches per shard (stage elements, gains)."""
+    from quattro_tpu_torch.parallel import make_mesh, podscale_riccati_backward
+
+    lanes = [riccati_stages("cpu", seed=50 + i, horizon=16) for i in range(4)]
+    data = (torch.stack([lane[0] for lane in lanes]), torch.stack([lane[1] for lane in lanes]),
+            CostExpansion(*(torch.stack([lane[2][i] for lane in lanes]) for i in range(5))),
+            torch.stack([lane[3] for lane in lanes]), torch.stack([lane[4] for lane in lanes]))
+    ref = podscale_riccati_backward(make_mesh((2, 2), devices=["cpu"] * 4), *data)
+    _build.reset_launches()
+    out = podscale_riccati_backward(cuda_mesh(cuda_device, (2, 2), ("traj", "horizon")), *_moved(data, cuda_device))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {smallchol.KERNEL: 8}
+    _close_all(ref, out)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_card_launches_k4_and_k7_per_shard_trip(cuda_device):
+    """``sharded_ilqr_solve`` on a virtual (2, 1) mesh, float32, linesearch="fused": each shard of 8 lanes takes
+    K4 and K7 once per trip of its own; every lane equals ``batched_ilqr_solve``'s on the card (iterations and
+    flags, cost within 1e-4 relative); float64 against the CPU run (cost rtol 1e-9, u atol 1e-8)."""
+    from quattro_tpu_torch.parallel import make_mesh, sharded_ilqr_solve
+
+    def cartpole(device, dtype):
+        t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+        rng = np.random.default_rng(2)
+        return (make_discrete(CartPoleField(), 0.01, "rk4"),
+                make_quadratic_cost(t([5.0, 0.1, 10.0, 0.1]), t([0.001]), t([0.0] * 4)),
+                make_quadratic_final_cost(t([50.0, 6.0, 100.0, 0.1]), t([0.0] * 4)),
+                t(0.2 * rng.standard_normal((16, 4))), t(np.zeros((16, 10, 1))))
+
+    cfg = ILQRConfig(tol=1e-3, max_iter=6, linesearch="fused")
+    args = cartpole(cuda_device, torch.float32)
+    _build.reset_launches()
+    sharded = sharded_ilqr_solve(*args, cuda_mesh(cuda_device, (2, 1), ("traj", "horizon")), cfg)
+    torch.cuda.synchronize()
+    trips = int(sharded.iterations[:8].max()) + int(sharded.iterations[8:].max())
+    assert dict(_build.launches) == {fused_riccati.BATCHED_KERNEL: trips, fused_rollout.BATCHED_KERNEL: trips}
+    plain = batched_ilqr_solve(*args, cfg)
+    assert torch.equal(sharded.iterations, plain.iterations) and torch.equal(sharded.converged, plain.converged)
+    assert float(((sharded.cost - plain.cost).abs() / plain.cost.abs()).max()) <= 1e-4
+    ref = sharded_ilqr_solve(*cartpole("cpu", torch.float64), make_mesh((2, 1), devices=["cpu"] * 2), cfg)
+    got = sharded_ilqr_solve(*cartpole(cuda_device, torch.float64), cuda_mesh(cuda_device, (2, 1), ("traj", "horizon")),
+                             cfg)
+    assert torch.equal(got.iterations.cpu(), ref.iterations) and torch.equal(got.converged.cpu(), ref.converged)
+    np.testing.assert_allclose(got.cost.cpu().numpy(), ref.cost.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(got.u_seq.cpu().numpy(), ref.u_seq.numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_halo_check_on_card(cuda_device):
+    """``verify_halo_exchange`` on a virtual 4-shard mesh of the card: 0.0 clean, 1.0 where one bit flipped."""
+    from quattro_tpu_torch.parallel import collectives
+    from quattro_tpu_torch.utils import verify_halo_exchange
+
+    mesh = cuda_mesh(cuda_device, (4,), ("horizon",))
+    comm = collectives.AxisComm(mesh, "horizon", mesh.coords(("horizon",)))
+    data = riccati_stages(cuda_device, seed=60, horizon=4)
+    sent = {c: (data[0][c[0]], data[3]) for c in comm.local}
+    perm = [(i, (i - 1) % 4) for i in range(4)]
+    received = comm.ppermute(sent, perm)
+    assert all(float(v) == 0.0 for v in verify_halo_exchange(sent, received, comm, perm).values())
+    bad = received[(3,)][0].clone()
+    bad.view(torch.int64)[2, 2] ^= 1
+    received[(3,)] = (bad, received[(3,)][1])
+    flags = verify_halo_exchange(sent, received, comm, perm)
+    assert {c[0]: float(v) for c, v in flags.items()} == {0: 0.0, 1: 0.0, 2: 0.0, 3: 1.0}
+
+
+@pytest.mark.cuda
+def test_data_parallel_training_on_card_matches_unsharded(cuda_device):
+    """5 Adam steps with ``mesh=`` over a virtual (4,) mesh of the card against ``mesh=None`` on the card (float32,
+    TF32 off, dropout 0.1 with the masks shared): per-step losses within 1e-5 relative."""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.training import GainDataset, TrainConfig, train_gain_predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    data = GainDataset(rng.standard_normal((64, 13, 4)).astype(np.float32),
+                       rng.standard_normal((64, 12, 5)).astype(np.float32))
+    config = TrainConfig(num_epochs=5, batch_size=64, learning_rate=3e-3)
+    losses = []
+    for mesh in (None, cuda_mesh(cuda_device, (4,), ("data",))):
+        pred = GainPredictor.create(4, 5, prompt_len=3, target_len=9, d_model=32, nhead=4, num_decoder_layers=2,
+                                    dim_feedforward=64, dropout=0.1, max_seq_len=32,
+                                    generator=torch.Generator().manual_seed(3), device=cuda_device)
+        losses.append(train_gain_predictor(pred, data, None, config, mesh=mesh).train_loss_history)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)

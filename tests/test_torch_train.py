@@ -137,7 +137,7 @@ def test_dropout_sites_and_scale_match_flax(monkeypatch, rate):
     jqueue, tqueue = MaskQueue(5, rate), MaskQueue(5, rate)
     monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape: jnp.asarray(jqueue.draw(shape)))
     monkeypatch.setattr(transformer, "_keep_mask",
-                        lambda shape, keep, generator, device: torch.from_numpy(tqueue.draw(shape)))
+                        lambda shape, keep, rand, device: torch.from_numpy(tqueue.draw(shape)))
     ref = jmodule.apply({"params": params}, jnp.asarray(x), jnp.asarray(p), deterministic=False,
                         rngs={"dropout": jax.random.PRNGKey(0)})
     out = module(torch.from_numpy(x), torch.from_numpy(p))
@@ -150,11 +150,16 @@ def test_dropout_sites_and_scale_match_flax(monkeypatch, rate):
 
 
 def test_dropout_law_and_eval_unchanged():
-    """dropout(): kept values scaled by 1/(1-p), the rest zero, masks from the generator; p=0 and eval mode are
-    the identity, so the eval forward of a p=0.1 model is bit for bit the p=0 model's."""
+    """dropout(): kept values scaled by 1/(1-p), the rest zero, masks from the caller's seeded uniforms; p=0 and
+    eval mode are the identity, so the eval forward of a p=0.1 model is bit for bit the p=0 model's."""
     x = torch.randn(2000, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
-    out = transformer.dropout(x, 0.25, torch.Generator().manual_seed(3))
-    again = transformer.dropout(x, 0.25, torch.Generator().manual_seed(3))
+
+    def seeded(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return lambda shape, device: torch.rand(shape, generator=gen, device=device)
+
+    out = transformer.dropout(x, 0.25, seeded(3))
+    again = transformer.dropout(x, 0.25, seeded(3))
     assert torch.equal(out, again)
     kept = out != 0
     torch.testing.assert_close(out[kept], x[kept] / 0.75, rtol=0, atol=0)
@@ -301,12 +306,16 @@ def test_state_stride_roundtrip_and_training(dataset, tmp_path):
 
 
 def test_mesh_is_refused(dataset):
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        training.train_gain_predictor(small_predictor(), dataset, None, training.TrainConfig(num_epochs=1),
-                                      mesh=object())
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
+    """JAX's two refusals of ``mesh=``: the device-resident path, and an effective batch the axis does not divide."""
+    from quattro_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((3,), ("data",), devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="not divisible by mesh axis 'data' size 3"):
+        training.train_gain_predictor(small_predictor(), dataset, None,
+                                      training.TrainConfig(num_epochs=1, batch_size=16), mesh=mesh)
+    with pytest.raises(ValueError, match="device-resident path"):
         training.train_gain_predictor(small_predictor(), training.DeviceGainDataset.from_host(dataset, "cpu"), None,
-                                      training.TrainConfig(num_epochs=1), mesh=object())
+                                      training.TrainConfig(num_epochs=1), mesh=mesh)
 
 
 def _reference_checkpoint(directory, seed=4, layers=2, d_model=16, nhead=2, ff=32, state_dim=4, control_dim=5,
