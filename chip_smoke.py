@@ -117,7 +117,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    after one flipped bit); and 5 Adam steps of the shipped predictor's width with ``mesh=`` over a (4,) mesh
    against ``mesh=None`` (dropout 0, TF32 off, losses within 1e-5 relative).
 
-Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12, 13 and 14)
+15. The examples (``phase_examples``): ``examples/collect_and_train_cuda.py``'s ``main`` called in process at
+   the JAX example's model width (d_model 128, 4 heads, 3 layers, ff 512: 616,244 parameters for the
+   quadrotor) and its default 64 initial states and 8 iterations, three runs: quadrotor with the model plant
+   (nominal parameters, device-resident, 10 MPC steps, 2 epochs, checkpoint written), quadrotor with the
+   randomized plant (5 steps, collection only), cart-pole with the model plant (10 steps, 1 epoch). Exactly
+   one K4 launch per trip of each collection (the example's linesearch="xla": no K7). The quadrotor
+   checkpoint, loaded through the package root's ``GainPredictor.load``, drives 20 steps of the hybrid MPC
+   (K1 and K2), held to the pure loop of phase 5 (1e-3).
+
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12, 13, 14 and 15)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -255,6 +264,18 @@ POD_GAIN_TOL, POD_VX_TOL = (2e-3, 1e-5), (1e-3, 1e-5)
 MESH_CPU_REL = 1e-9  # a sharded pass on the card against the same pass on a CPU mesh, float64, normwise
 TREE_RING_REL = 1e-12
 MESH_TRAIN_REL = 1e-5
+
+# Phase 15, the examples: the three runs of examples/collect_and_train_cuda.py (its defaults otherwise, among
+# them --num-inits 64, --max-iter 8 and the model width), cut in depth only (--sim-steps, --epochs).
+EXAMPLE_RUNS = (
+    ("quadrotor_model", ["--system", "quadrotor", "--plant", "model", "--quad-params", "nominal",
+                         "--device-resident", "--sim-steps", "10", "--epochs", "2", "--out", "quad.npz"]),
+    ("quadrotor_randomized", ["--system", "quadrotor", "--plant", "randomized", "--quad-params", "nominal",
+                              "--sim-steps", "5", "--epochs", "0", "--out", "unused.npz"]),
+    ("cartpole_model", ["--system", "cartpole", "--plant", "model", "--sim-steps", "10", "--epochs", "1",
+                        "--out", "cp.npz"]),
+)
+EXAMPLE_HYBRID_STEPS = 20
 
 # queued_ms's sleep kernel: about 3 ms of the card's clock, longer than the host takes to queue 50 calls.
 QUEUE_SLEEP_CYCLES = 5_000_000
@@ -1945,6 +1966,72 @@ def phase_mesh(report):
     return results
 
 
+def phase_examples(report, root, pure_xs):
+    """The example's collect-and-train path, in process: K4 once per collection trip, then K1 + K2 in the loop."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import quattro_tpu_torch
+    from quattro_tpu_torch.control import make_quadrotor_mpc
+    from quattro_tpu_torch.systems import QuadrotorField, make_discrete
+
+    start_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "collect_and_train_cuda", os.path.join(root, "examples", "collect_and_train_cuda.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    results = {}
+    try:
+        for label, argv in EXAMPLE_RUNS:
+            argv = [os.path.join(tmp, a) if a.endswith(".npz") else a for a in argv] + ["--device", "cuda"]
+            start = time.perf_counter()
+            summary, counts = counted((K4,), report, lambda: example.main(argv))
+            seconds = time.perf_counter() - start
+            trips = summary["trips"]
+            steps_s = summary["train_steps"] / summary["train_s"] if "train_s" in summary else None
+            log(f"example {label}: rows kept {summary['rows']}, valid {summary['rows_valid']}, dropped "
+                f"{summary['rows_dropped']}, {summary['rows'] / summary['collect_s']:.1f} rows/s; K4 launches "
+                f"{counts.get(K4, 0)} for {trips} trips, launches {counts}; train steps/s {steps_s}, final losses "
+                f"train {summary.get('final_train_loss')} test {summary.get('final_test_loss')}, "
+                f"{summary.get('params')} parameters; {seconds:.1f} s")
+            if counts != {K4: trips}:
+                raise AssertionError(f"example {label}: launches {counts}, expected one K4 per trip ({trips})")
+            if summary["rows"] <= 0 or (summary.get("final_train_loss") is not None
+                                        and not np.isfinite(summary["final_train_loss"])):
+                raise AssertionError(f"example {label}: malformed result {summary}")
+            results[label] = dict(summary, seconds=seconds, train_steps_per_s=steps_s,
+                                  rows_per_s=summary["rows"] / summary["collect_s"])
+        if results["quadrotor_model"]["params"] != SHIPPED_PARAMS:
+            raise AssertionError(f"example: {results['quadrotor_model']['params']} parameters, the JAX example's "
+                                 f"width has {SHIPPED_PARAMS}")
+
+        # The trained checkpoint, loaded through the package root, drives the hybrid MPC on the card.
+        pred = quattro_tpu_torch.GainPredictor.load(os.path.join(tmp, "quad.npz"))
+        ctrl = make_quadrotor_mpc(horizon=50, mode="hybrid", predict_fn=pred.predict_fn(),
+                                  prompt_len=pred.prompt_len)
+        plant = make_discrete(QuadrotorField(), 0.01, "rk4")
+        start = time.perf_counter()
+        (x, x_plan, lat, _, _), counts = counted(
+            (K1, K2), report,
+            lambda: closed_loop(ctrl.step, ctrl.init_state(), plant, quadrotor_start(torch.device("cuda")),
+                                EXAMPLE_HYBRID_STEPS))
+        seconds = time.perf_counter() - start
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    track = float((x - pure_xs[EXAMPLE_HYBRID_STEPS - 1]).abs().max())
+    median_ms, p99_ms = latency(lat)
+    results["hybrid"] = dict(track=track, median_ms=median_ms, p99_ms=p99_ms, seconds=seconds, launches=counts)
+    results["seconds"] = time.perf_counter() - start_phase
+    log(f"example checkpoint's hybrid MPC: {EXAMPLE_HYBRID_STEPS} steps, max |x - x(pure)| {track:.3e} (bar "
+        f"{HYBRID_TRACK_BAR}), step latency median {median_ms:.2f} ms p99 {p99_ms:.2f} ms, launches {counts}; "
+        f"examples phase {results['seconds']:.1f} s")
+    if not (torch.isfinite(x_plan).all() and track < HYBRID_TRACK_BAR):
+        raise AssertionError(f"MPC hybrid with the example's checkpoint left the pure closed loop: {track}")
+    return results
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1987,10 +2074,11 @@ def main() -> int:
     assoc = phase_assoc(report, pure_xs)
     train = phase_train(report, pure_xs)
     mesh = phase_mesh(report)
+    examples = phase_examples(report, root, pure_xs)
     log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
                                 "k67_timing": k67_times, "bench_iters_per_s": rates,
                                 "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc,
-                                "train": train, "mesh": mesh, "wall_s": time.perf_counter() - _START}}))
+                                "train": train, "mesh": mesh, "examples": examples, "wall_s": time.perf_counter() - _START}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {

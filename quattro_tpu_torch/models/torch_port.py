@@ -7,6 +7,11 @@ hyperparameters and normalizer statistics). The port's layer math is that
 of ``torch.nn.TransformerEncoderLayer`` and its weights keep torch's
 ``(out, in)`` layout, so the tensors load as they are, renamed and cast to
 float32: no transposes.
+
+``CARTPOLE_CHECKPOINT`` and ``QUADROTOR_CHECKPOINT`` name the reference
+repository's two shipped checkpoint directories, inside a checkout of it whose
+root is the environment variable ``QUATTRO_TPU_REFERENCE`` (unset: the paths
+are relative, resolved against the working directory).
 """
 
 from __future__ import annotations
@@ -66,3 +71,12 @@ def load_torch_checkpoint(checkpoint_dir: str, device: DeviceLike = None) -> Gai
         *(torch.from_numpy(np.asarray(meta[k], dtype=np.float32)) for k in ("x_mean", "x_std", "u_mean", "u_std"))
     )
     return GainPredictor(module.to(dev), normalizer.to(dev))
+
+
+_REFERENCE = os.environ.get("QUATTRO_TPU_REFERENCE", "")
+CARTPOLE_CHECKPOINT = os.path.join(
+    _REFERENCE, "examples/cartpole/dec3_dmodel128_nhead4_ff256_drop0.1_epoch200_promptlen5_402.7k"
+)
+QUADROTOR_CHECKPOINT = os.path.join(
+    _REFERENCE, "examples/quadrotor/dec3_dmodel128_nhead4_ff512_drop0.1_epoch200_promptlen1_616.2k"
+)

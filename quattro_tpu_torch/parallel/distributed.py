@@ -35,10 +35,15 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+# The CUDA indices given to ``initialize(local_device_ids=...)``: ``global_mesh``'s default local devices.
+_local_device_ids: Optional[Tuple[int, ...]] = None
+
+
 def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> bool:
     """Join (or skip) the multi-process runtime; idempotent.
 
@@ -48,7 +53,13 @@ def initialize(
     if a process group is active after the call. With no address and no
     variables this is a clean no-op that returns False (library code may call
     it unconditionally). A failed setup raises.
+
+    ``local_device_ids``: the CUDA indices this process drives; where given,
+    they become ``global_mesh``'s default ``local_devices`` (``cuda:i`` each).
     """
+    global _local_device_ids
+    if local_device_ids is not None:
+        _local_device_ids = tuple(int(i) for i in local_device_ids)
     if is_initialized():
         return True
     env = os.environ
@@ -83,11 +94,14 @@ def global_mesh(
 ) -> Mesh:
     """Named mesh over every process's devices, process 0's first.
 
-    ``local_devices``: this process's devices (default: every visible CUDA
-    device; a CPU mesh, e.g. ``["cpu"]``, only when given). Same semantics as
+    ``local_devices``: this process's devices (default: the CUDA devices of
+    ``initialize(local_device_ids=...)``, else every visible CUDA device; a
+    CPU mesh, e.g. ``["cpu"]``, only when given). Same semantics as
     ``make_mesh``, which it is in a single process. Default: everything on
     the ``traj`` axis.
     """
+    if local_devices is None and _local_device_ids is not None:
+        local_devices = [f"cuda:{i}" for i in _local_device_ids]
     local = [_indexed(resolve_device(d)) for d in local_devices] if local_devices is not None else default_devices()
     if not is_initialized():
         return make_mesh(axis_shapes, axis_names, devices=local)
@@ -144,7 +158,12 @@ def global_to_host_local(mesh: Mesh, spec: SpecLike, global_arr: GlobalArray) ->
     return assemble(global_arr.shards, mesh, spec, mesh.device(first))
 
 
-def barrier() -> None:
-    """Block until every process reaches this point (a no-op in a single process)."""
+def barrier(name: str = "quattro_tpu_barrier") -> None:
+    """Block until every process reaches this point (a no-op in a single process).
+
+    ``name`` is accepted for JAX's signature and not used: ``dist.barrier`` has
+    no tag, and every process of the group takes part in every barrier.
+    """
+    del name
     if is_initialized():
         dist.barrier()

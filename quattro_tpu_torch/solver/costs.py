@@ -4,15 +4,17 @@ Quadratic running/final costs with no 1/2 factor and the smooth softplus^2
 control-positivity barrier. Costs are scalar torch callables so the solver
 can quadratize them with ``torch.func.grad`` / ``jacfwd``; they also broadcast
 over leading batch dimensions. ``make_quadratic_cost`` and
-``make_quadratic_final_cost`` return small callable objects that carry their
-tables and a ``kind``, as ``make_discrete`` does for the plant, so a CUDA
-kernel's wrapper can read what it cannot trace.
+``make_quadratic_final_cost`` return small callable objects
+(``QuadraticRunningCost``, ``QuadraticFinalCost``) that carry their tables
+and a ``kind``, as ``make_discrete`` does for the plant, so a CUDA kernel's
+wrapper can read what it cannot trace. ``QuadraticCost`` is the JAX
+package's diagonal-weight spec under its name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, ClassVar
+from typing import Callable, ClassVar, NamedTuple
 
 import torch
 
@@ -20,12 +22,20 @@ RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 FinalCost = Callable[[torch.Tensor], torch.Tensor]
 
 
+class QuadraticCost(NamedTuple):
+    """Diagonal-weight quadratic tracking cost spec (JAX's ``QuadraticCost``)."""
+
+    q_diag: torch.Tensor  # (n,) state weights
+    r_diag: torch.Tensor  # (m,) control weights
+    qf_diag: torch.Tensor  # (n,) terminal state weights
+
+
 def _as_matrix(w: torch.Tensor) -> torch.Tensor:
     return torch.diag(w) if w.ndim == 1 else w
 
 
 @dataclasses.dataclass(frozen=True, eq=False, repr=False)
-class QuadraticCost:
+class QuadraticRunningCost:
     """Running cost ``dx'Q dx + u'R u (+ alpha * sum softplus(-u, beta)^2)`` as a callable.
 
     It carries its tables, so the whole-solve kernel (``ops/fused_solve.py``),
@@ -42,7 +52,7 @@ class QuadraticCost:
     def __repr__(self) -> str:
         # Without the tables: torch.func.vmap names a callable object by its
         # repr on every call, and printing CUDA tensors reads them back.
-        return (f"QuadraticCost(n={self.q_mat.shape[0]}, m={self.r_mat.shape[0]}, "
+        return (f"QuadraticRunningCost(n={self.q_mat.shape[0]}, m={self.r_mat.shape[0]}, "
                 f"barrier_alpha={self.barrier_alpha}, barrier_beta={self.barrier_beta})")
 
     def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -62,7 +72,7 @@ class QuadraticFinalCost:
     kind: ClassVar[str] = "quadratic_final"
 
     def __repr__(self) -> str:
-        return f"QuadraticFinalCost(n={self.qf_mat.shape[0]})"  # see QuadraticCost.__repr__
+        return f"QuadraticFinalCost(n={self.qf_mat.shape[0]})"  # see QuadraticRunningCost.__repr__
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         dx = x - self.x_ref
@@ -75,7 +85,7 @@ def make_quadratic_cost(
     x_ref: torch.Tensor,
     barrier_alpha: float = 0.0,
     barrier_beta: float = 10.0,
-) -> QuadraticCost:
+) -> QuadraticRunningCost:
     """Running cost ``dx'Q dx + u'R u (+ alpha * sum softplus(-u, beta)^2)``.
 
     ``q``/``r`` may be full matrices or 1-D diagonals; they are moved to
@@ -83,7 +93,7 @@ def make_quadratic_cost(
     """
     q_mat = _as_matrix(torch.as_tensor(q, dtype=x_ref.dtype, device=x_ref.device))
     r_mat = _as_matrix(torch.as_tensor(r, dtype=x_ref.dtype, device=x_ref.device))
-    return QuadraticCost(q_mat, r_mat, x_ref, float(barrier_alpha), float(barrier_beta))
+    return QuadraticRunningCost(q_mat, r_mat, x_ref, float(barrier_alpha), float(barrier_beta))
 
 
 def make_quadratic_final_cost(qf: torch.Tensor, x_ref: torch.Tensor) -> QuadraticFinalCost:

@@ -16,6 +16,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
 from quattro_tpu_torch.parallel import distributed
 
@@ -32,6 +33,25 @@ def test_single_process_is_clean_noop(monkeypatch):
     distributed.barrier()  # must not hang or require a runtime
     mesh = distributed.global_mesh((2,), ("traj",), local_devices=["cpu", "cpu"])
     assert mesh.shape == {"traj": 2} and not mesh.spans_processes()
+
+
+def test_jax_signatures_are_accepted(monkeypatch):
+    """JAX's ``initialize(..., local_device_ids=)`` and ``barrier(name=)``: the ids become ``global_mesh``'s default
+    local devices, the barrier's tag is accepted (a no-op in a single process)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(distributed, "_local_device_ids", None)
+    assert distributed.initialize(None, None, None, local_device_ids=[1, 0]) is False
+    assert distributed._local_device_ids == (1, 0)
+    distributed.barrier(name="quattro_tpu_barrier")
+    distributed.barrier("a tag")
+    seen = []
+    monkeypatch.setattr(distributed, "resolve_device", lambda d: torch.device(d))
+    monkeypatch.setattr(distributed, "make_mesh", lambda shapes, names, devices: seen.append(devices) or "mesh")
+    assert distributed.global_mesh((2,), ("traj",)) == "mesh"
+    assert seen == [[torch.device("cuda", 1), torch.device("cuda", 0)]]
+    distributed.global_mesh((1,), ("traj",), local_devices=["cpu"])  # given devices still win
+    assert seen[-1] == [torch.device("cpu")]
 
 
 def test_initialize_needs_the_process_counts(monkeypatch):
@@ -52,8 +72,9 @@ _WORKER = textwrap.dedent(
     from quattro_tpu_torch.solver import CostExpansion, riccati_backward
     from quattro_tpu_torch.utils import verify_halo_exchange
 
-    ok = distributed.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=pid)
-    assert ok and distributed.is_initialized()
+    ok = distributed.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=pid, local_device_ids=[pid])
+    assert ok and distributed.is_initialized() and distributed._local_device_ids == (pid,)
+    distributed.barrier(name="joined")
     assert distributed.process_info() == (pid, 2)
 
     # Host-local -> global, then a cross-process psum over the traj axis.

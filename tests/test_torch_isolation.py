@@ -1,5 +1,6 @@
-"""The port stands alone: no module of quattro_tpu_torch, and not chip_smoke.py,
-imports JAX, flax, optax or anything of quattro_tpu.
+"""The port stands alone: no module of quattro_tpu_torch, not chip_smoke.py and
+not the port's examples (``examples/*_cuda.py``) imports JAX, flax, optax or
+anything of quattro_tpu.
 
 Checked by scanning each file's syntax tree, without importing it.
 """
@@ -10,7 +11,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "quattro_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "quattro_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("*_cuda.py")))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "quattro_tpu")
 
 
@@ -43,7 +45,10 @@ def test_the_scan_covers_the_package():
                    "quattro_tpu_torch/training/__init__.py", "quattro_tpu_torch/models/torch_port.py",
                    "quattro_tpu_torch/parallel/mesh.py", "quattro_tpu_torch/parallel/collectives.py",
                    "quattro_tpu_torch/parallel/horizon.py", "quattro_tpu_torch/parallel/podscale.py",
-                   "quattro_tpu_torch/parallel/distributed.py", "chip_smoke.py"):
+                   "quattro_tpu_torch/parallel/distributed.py", "quattro_tpu_torch/sim/__init__.py",
+                   "quattro_tpu_torch/sim/mujoco_bridge.py", "quattro_tpu_torch/__init__.py",
+                   "examples/collect_and_train_cuda.py", "examples/cartpole_sim_cuda.py",
+                   "examples/quadrotor_sim_cuda.py", "examples/plot_results_cuda.py", "chip_smoke.py"):
         assert module in names
 
 

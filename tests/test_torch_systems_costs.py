@@ -146,7 +146,7 @@ def test_cost_objects_carry_their_tables():
     assert torch.equal(cost.r_mat, full) and cost.x_ref is x_ref and fcost.x_ref is x_ref
     assert (cost.barrier_alpha, cost.barrier_beta) == (3.0, 7.0) and fcost.qf_mat[0, 0] == 50.0
     # torch.func.vmap names a callable object by its repr on every call: no tensor is printed.
-    assert repr(cost) == "QuadraticCost(n=4, m=2, barrier_alpha=3.0, barrier_beta=7.0)"
+    assert repr(cost) == "QuadraticRunningCost(n=4, m=2, barrier_alpha=3.0, barrier_beta=7.0)"
     assert repr(fcost) == "QuadraticFinalCost(n=4)"
     # A full, non-symmetric R: the value is u'R u as JAX computes it.
     u = np.array([0.3, -0.2])
@@ -166,3 +166,17 @@ def test_barrier_grad_and_hessian_match_jax(u0):
     _close(jf(jnp.asarray(u)), tf(tu).numpy())
     _close(jax.grad(jf)(jnp.asarray(u)), grad(tf)(tu).numpy(), atol=1e-300)
     _close(jax.hessian(jf)(jnp.asarray(u)), jacfwd(grad(tf))(tu).numpy(), atol=1e-300)
+
+
+def test_quadratic_cost_spec_has_jax_fields():
+    """``QuadraticCost`` is JAX's diagonal-weight spec in both packages; the callable is ``QuadraticRunningCost``."""
+    rng = np.random.default_rng(5)
+    q, r, qf = rng.uniform(0.1, 2.0, 12), rng.uniform(0.1, 2.0, 4), rng.uniform(0.1, 2.0, 12)
+    theirs = jsolver.QuadraticCost(jnp.asarray(q), jnp.asarray(r), jnp.asarray(qf))
+    ours = tsolver.QuadraticCost(torch.from_numpy(q), torch.from_numpy(r), torch.from_numpy(qf))
+    assert ours._fields == theirs._fields == ("q_diag", "r_diag", "qf_diag")
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert isinstance(tsolver.make_quadratic_cost(torch.from_numpy(q), torch.from_numpy(r), torch.zeros(12,
+                      dtype=torch.float64)), tsolver.QuadraticRunningCost)
+    assert {"QuadraticCost", "QuadraticRunningCost", "QuadraticFinalCost"} <= set(tsolver.__all__)
