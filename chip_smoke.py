@@ -126,7 +126,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    checkpoint, loaded through the package root's ``GainPredictor.load``, drives 20 steps of the hybrid MPC
    (K1 and K2), held to the pure loop of phase 5 (1e-3).
 
-Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12, 13, 14 and 15)
+16. The batched hybrid solve (``phase_hybrid``): ``benchmarks/suite.py``'s ``bench_hybrid_speedup_batched``
+   problem (quadrotor RK4, B=64, ``ILQRConfig(tol=0, max_iter=4, linesearch="fused")``, x0 z = 0.2 + 0.3 U
+   from a numpy seed, x0[6] = 0.1, zero controls) at H=256 with ``checkpoints/quadrotor_h256_gain.npz`` and at
+   H=512 with ``quadrotor_h512_gain.npz``, float32: the pure fused batched solve (K4 + K7 per trip) and
+   ``batched_hybrid_ilqr_solve`` (K4 over the 16-step tail window, one predictor forward over the batch, K7
+   per trip), launches equal to the trips, ms per iteration of each (median of 3 synchronized calls, in
+   turns), the device idle share of one hybrid call, and the host-side split of a trip (derivatives, K4,
+   predictor, K7, select); at H=256 every float32 lane held to its single ``hybrid_ilqr_solve`` (cost rtol
+   1e-4; the single solves run in 4 worker processes beside the float64 runs below). Then float64, B=8 (4 of
+   the suite's lanes, 4 near the hover), ``max_iter=3``, tol 0.1: with and without the exact fallback (its
+   backward pass forced to K4), at H=256 (window 16) and H=50 with ``quadrotor_gain.npz`` (window 1), every
+   lane equal to its single solve on the card (iterations and flags, cost rtol 1e-9, u atol 1e-8); and the
+   fallback in float32 under ``riccati_backend="auto"``, whose gathered subsets of fewer than 8 lanes must
+   still launch K4.
+
+Launch counters are zeroed just before each main-path run (phases 4, 5, 7, 9, 10, 12, 13, 14, 15 and 16)
 and read just after it; a kernel of the path that did not launch fails the
 run. The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Needs no network and one card.
@@ -136,10 +151,12 @@ from __future__ import annotations
 
 import functools
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -276,6 +293,21 @@ EXAMPLE_RUNS = (
                         "--out", "cp.npz"]),
 )
 EXAMPLE_HYBRID_STEPS = 20
+
+# Phase 16, the batched hybrid solve: benchmarks/suite.py's bench_hybrid_speedup_batched problem, B=64, 4
+# forced iterations, with the shipped long-horizon checkpoints as they are (window 16; state strides 4 and 8).
+HYBRID_BATCH = 64
+HYBRID_ITERS = 4
+HYBRID_RUNS = ((256, "quadrotor_h256_gain.npz"), (512, "quadrotor_h512_gain.npz"))
+HYBRID_TIMED_CALLS = 3
+HOVER_THRUST = 2.4525
+# Lanes against their single solves on the card: float32 (phase 16's B=64 at H=256) on the cost; float64 on
+# 8 lanes, half of them near the hover, where the hybrid step ends them or the exact fallback takes over within
+# 3 iterations at tol 0.1 (a CPU run of the port: fallbacks over 4 and 4 lanes at H=256, 3 and 3 at H=50).
+F32_HYBRID_COST_RTOL = 1e-4
+F32_SINGLE_WORKERS = 4  # processes for the 64 float32 single solves (the card's machine has 8 cores)
+HYBRID_PARITY_BATCH, HYBRID_PARITY_NEAR, HYBRID_PARITY_ITERS, HYBRID_PARITY_TOL = 8, 4, 3, 0.1
+HYBRID_PARITY_RUNS = ((256, "quadrotor_h256_gain.npz"), (50, "quadrotor_gain.npz"))
 
 # queued_ms's sleep kernel: about 3 ms of the card's clock, longer than the host takes to queue 50 calls.
 QUEUE_SLEEP_CYCLES = 5_000_000
@@ -1392,17 +1424,19 @@ def phase_batch_trip(report):
                 device_ms=device_ms, kernel_device_ms={name: v[0] for name, v in kernel_ms.items()})
 
 
+def synced_ms(fn):
+    """Host wall time of one call, synchronized before and after (ms)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - start)
+
+
 def wall_ms(fn, reps=2):
     """Median host wall time of one synchronized call, after one warm-up call."""
     fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - start))
-    return float(np.median(times))
+    return float(np.median([synced_ms(fn) for _ in range(reps)]))
 
 
 def phase_breakdown(pred, horizon=50):
@@ -1457,7 +1491,10 @@ def idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - start)
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    # The device events' durations straight from the trace: the same sum as key_averages()'s self device time
+    # of its CUDA events, without building a Python object per traced kernel.
+    busy_us = 1e-3 * sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA)
     return None if busy_us <= 0 else 1.0 - busy_us / wall_us
 
 
@@ -2032,6 +2069,246 @@ def phase_examples(report, root, pure_xs):
     return results
 
 
+def hybrid_problem(dtype, batch, horizon, near=0, seed=0):
+    """The suite's hybrid problem: (dyn, cost, fcost, x0 (B, 12), u0 (B, H, 4), x_ref).
+
+    The bench problem's tables; x0 z = 0.2 + 0.3 U from a numpy seed, x0[6] = 0.1,
+    zero controls. The last ``near`` lanes start instead within about 0.02 of
+    the reference, at hover thrust.
+    """
+    dyn, cost, fcost, _, _ = bench_problem(dtype, horizon)
+    x_ref = torch.zeros(12, dtype=dtype, device="cuda")
+    x_ref[2] = 0.5
+    x0 = torch.zeros(batch, 12, dtype=dtype, device="cuda")
+    x0[:, 2] = torch.from_numpy(0.2 + 0.3 * np.random.default_rng(seed).random(batch)).to(x0)
+    x0[:, 6] = 0.1
+    u0 = torch.zeros(batch, horizon, 4, dtype=dtype, device="cuda")
+    if near:
+        x0[batch - near:] = x_ref + torch.from_numpy(0.02 * np.random.default_rng(seed + 1).standard_normal(
+            (near, 12))).to(x0)
+        u0[batch - near:] = HOVER_THRUST
+    return dyn, cost, fcost, x0, u0, x_ref
+
+
+def single_hybrid_solves(problem, predict, window, config, state_offset=None, exact_fallback=False):
+    """The ``hybrid_ilqr_solve`` of each lane on the card, stacked into a batched ``ILQRSolution``."""
+    from quattro_tpu_torch.solver import ILQRSolution, hybrid_ilqr_solve
+
+    dyn, cost, fcost, x0, u0, x_ref = problem
+    sols = [hybrid_ilqr_solve(dyn, cost, fcost, predict, window, x, u, x_ref, config, state_offset,
+                              exact_fallback=exact_fallback) for x, u in zip(x0, u0)]
+    return ILQRSolution(*(torch.stack([torch.as_tensor(getattr(sol, f), device="cuda") for sol in sols])
+                          for f in ILQRSolution._fields))
+
+
+def lanes_against_singles(batched, singles):
+    """(iterations and flags equal, max cost rel, max |du|) of a batched solve against its lanes' single solves."""
+    same = bool(torch.equal(batched.iterations.long(), singles.iterations.long())
+                and torch.equal(batched.converged, singles.converged))
+    cost_rel = float(((batched.cost - singles.cost).abs() / singles.cost.abs()).max())
+    return same, cost_rel, float((batched.u_seq - singles.u_seq).abs().max())
+
+
+def initial_rollout(problem):
+    """The batched solves' first step: the open-loop rollouts of the warm starts and their costs."""
+    from quattro_tpu_torch.parallel import batch
+
+    dyn, cost, fcost, x0, us, _ = problem
+    return batch._initial_batch(dyn, cost, fcost, x0, us)
+
+
+def hybrid_trip_split(problem, predict, window, config):
+    """Host wall time (ms, synchronized, median of 3) of each part of one batched trip at the first trip's
+    inputs, through the helpers the solves call (quattro_tpu_torch/parallel/batch.py): the hybrid trip's parts,
+    and the pure trip's full-horizon derivatives and K4."""
+    from quattro_tpu_torch.parallel import batch
+
+    dyn, cost, fcost, x0, us, x_ref = problem
+    head = us.shape[1] - window
+    offset = torch.zeros_like(x_ref)
+    alphas = batch._alphas(config, x0)
+    search = batch._batched_line_search(dyn, cost, fcost, config)
+    tail_backward = batch._tail_backward(config, x0, us)
+    _, full_backward = batch._select_backend(config, x0, us, "auto")
+    xs, cs = batch._initial_batch(dyn, cost, fcost, x0, us)
+    a, b, exp, fexp = batch._derivatives(dyn, cost, fcost, xs[:, head:], us[:, head:])
+    fa, fb, fexp_full, ffin = batch._derivatives(dyn, cost, fcost, xs, us)
+    k_tail, big_k_tail = tail_backward(a, b, exp, fexp.v_x, fexp.v_xx)
+    k, big_k = batch._hybrid_gains(predict, xs, x_ref, offset, k_tail, big_k_tail)
+    found, _, new_x, new_u, new_cost = search(x0, xs, us, k, big_k, cs, alphas)
+    active = torch.ones(x0.shape[0], dtype=torch.bool, device="cuda")
+    ks, big_ks = torch.zeros_like(k), torch.zeros_like(big_k)
+
+    def select():  # the masked loop's bookkeeping after the line search, the stopping rule included
+        kept = batch._keep_active(active, (new_x, new_u, new_cost, k, big_k), (xs, us, cs, ks, big_ks))
+        return kept, ~found | ((cs - new_cost).abs() < config.tol)
+
+    parts = {
+        "derivatives (window)": lambda: batch._derivatives(dyn, cost, fcost, xs[:, head:], us[:, head:]),
+        "K4 (window)": lambda: tail_backward(a, b, exp, fexp.v_x, fexp.v_xx),
+        "predictor (with prompt and gains)": lambda: batch._hybrid_gains(predict, xs, x_ref, offset, k_tail,
+                                                                         big_k_tail),
+        "K7 line search": lambda: search(x0, xs, us, k, big_k, cs, alphas),
+        "select": select,
+        "pure: derivatives (full)": lambda: batch._derivatives(dyn, cost, fcost, xs, us),
+        "pure: K4 (full)": lambda: full_backward(fa, fb, fexp_full, ffin.v_x, ffin.v_xx, config.reg),
+    }
+    return {name: wall_ms(fn, reps=3) for name, fn in parts.items()}
+
+
+def float32_single_solves(root, lo, hi):
+    """Worker process: the single ``hybrid_ilqr_solve`` of lanes ``lo:hi`` of phase 16's float32 problem at
+    H=256 on the card, each field of the stacked solution as a numpy array."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.solver import ILQRConfig
+
+    horizon, name = HYBRID_RUNS[0]
+    pred = GainPredictor.load(os.path.join(root, "checkpoints", name), device="cuda")
+    dyn, cost, fcost, x0, u0, x_ref = hybrid_problem(torch.float32, HYBRID_BATCH, horizon)
+    forced = ILQRConfig(tol=0.0, max_iter=HYBRID_ITERS, linesearch="fused")
+    sol = single_hybrid_solves((dyn, cost, fcost, x0[lo:hi], u0[lo:hi], x_ref), pred.predict_fn(), pred.prompt_len,
+                               forced)
+    return [field.cpu().numpy() for field in sol]
+
+
+def phase_hybrid(report, root):
+    """The batched hybrid solve: the suite's problem at H=256 and 512 beside the pure fused batched solve, and
+    lane-for-lane parity with the single hybrid solve on the card."""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.parallel import batched_hybrid_ilqr_solve, batched_ilqr_solve
+    from quattro_tpu_torch.solver import ILQRConfig, ILQRSolution
+
+    start_phase = time.perf_counter()
+    results, hybrids = {}, {}
+    forced = ILQRConfig(tol=0.0, max_iter=HYBRID_ITERS, linesearch="fused")
+    for horizon, name in HYBRID_RUNS:
+        pred = GainPredictor.load(os.path.join(root, "checkpoints", name), device="cuda")
+        window, predict = pred.prompt_len, pred.predict_fn()
+        problem = hybrid_problem(torch.float32, HYBRID_BATCH, horizon)
+        dyn, cost, fcost, x0, u0, x_ref = problem
+        solves = {  # bound now: the idle shares call the hybrid solves after this loop
+            "pure": functools.partial(batched_ilqr_solve, dyn, cost, fcost, x0, u0, forced),
+            "hybrid": functools.partial(batched_hybrid_ilqr_solve, dyn, cost, fcost, predict, window, x0, u0, x_ref,
+                                        forced),
+        }
+        hybrids[horizon] = solves["hybrid"]
+        run = dict(window=window, stride=pred.state_stride, params=pred.num_params())
+        sols = {}
+        for label, solve in solves.items():
+            sol, counts = counted((K4, K7), report, solve)
+            trips = int(sol.iterations.max())
+            log(f"batched {label} H={horizon} B={HYBRID_BATCH}: {trips} trips, launches {counts}, mean cost "
+                f"{float(sol.cost.mean()):.6f}, iterations {sorted(set(sol.iterations.tolist()))}")
+            if counts != {K4: trips, K7: trips} or (label == "pure" and trips != HYBRID_ITERS):
+                raise AssertionError(f"batched {label} H={horizon}: {trips} trips, launches {counts}; expected one K4 "
+                                     f"and one K7 launch per trip")
+            if not (torch.isfinite(sol.x_seq).all() and sol.x_seq.shape == (HYBRID_BATCH, horizon + 1, 12)
+                    and torch.isfinite(sol.cost).all()):
+                raise AssertionError(f"batched {label} H={horizon}: malformed solution")
+            sols[label] = sol
+            run.update({f"{label}_trips": trips, f"{label}_launches": counts,
+                        f"{label}_mean_cost": float(sol.cost.mean())})
+        # Synchronized calls in turns (pure, hybrid, the initial rollout both start with), before any profiler
+        # session of this phase: one slows the host's later launches in its process.
+        timed = dict(solves, rollout=functools.partial(initial_rollout, problem))
+        times = {label: [] for label in timed}
+        for _ in range(HYBRID_TIMED_CALLS):
+            for label, fn in timed.items():
+                times[label].append(synced_ms(fn))
+        run["rollout_ms"] = float(np.median(times["rollout"]))
+        for label in solves:
+            ms = float(np.median(times[label]))
+            trips = run[f"{label}_trips"]
+            run.update({f"{label}_ms": ms, f"{label}_ms_per_iter": ms / trips,
+                        f"{label}_trip_ms": (ms - run["rollout_ms"]) / trips})
+        run["hybrid_vs_pure"] = run["pure_ms_per_iter"] / run["hybrid_ms_per_iter"]
+        run["split_ms"] = hybrid_trip_split(problem, predict, window, forced)
+        log(f"batched hybrid H={horizon} B={HYBRID_BATCH} (window {window}, stride {pred.state_stride}, "
+            f"{pred.num_params()} parameters): ms per iteration for the whole batch, pure {run['pure_ms_per_iter']:.2f} "
+            f"(call {run['pure_ms']:.1f}), hybrid {run['hybrid_ms_per_iter']:.2f} (call {run['hybrid_ms']:.1f}), "
+            f"pure / hybrid {run['hybrid_vs_pure']:.3f}; the initial rollout {run['rollout_ms']:.1f}; per trip "
+            f"without it, pure {run['pure_trip_ms']:.2f}, hybrid {run['hybrid_trip_ms']:.2f}")
+        log(json.dumps({"hybrid_trip_split_ms": {"horizon": horizon, **run["split_ms"]}}))
+        if horizon == HYBRID_RUNS[0][0]:
+            f32_batched = sols["hybrid"]
+        results[f"H{horizon}"] = run
+    for horizon, hybrid in hybrids.items():
+        results[f"H{horizon}"]["idle_share"] = idle = idle_share(hybrid)
+        log(f"batched hybrid H={horizon}: device idle share of one call (profiled) {idle}")
+    # The float32 lanes' single solves (about 1.5 s each, most of it the eager initial rollout) run in worker
+    # processes, beside the float64 parity runs of this process; no timing is taken meanwhile.
+    chunks = np.array_split(np.arange(HYBRID_BATCH), F32_SINGLE_WORKERS)
+    with ProcessPoolExecutor(F32_SINGLE_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(float32_single_solves, root, int(chunk[0]), int(chunk[-1]) + 1) for chunk in chunks]
+        results["parity"] = hybrid_parity(report, root)
+        parts = [future.result() for future in futures]
+    singles = ILQRSolution(*(torch.from_numpy(np.concatenate(field)).to(f32_batched.cost.device)
+                             for field in zip(*parts)))
+    same, cost_rel, u_abs = lanes_against_singles(f32_batched, singles)
+    horizon = HYBRID_RUNS[0][0]
+    log(f"batched hybrid H={horizon} float32, all {len(singles.cost)} lanes against their single solves "
+        f"({F32_SINGLE_WORKERS} worker processes): iterations and flags equal {same}, max cost rel {cost_rel:.3e} "
+        f"(bound {F32_HYBRID_COST_RTOL}), max |du| {u_abs:.3e}")
+    if not cost_rel <= F32_HYBRID_COST_RTOL:
+        raise AssertionError(f"float32 batched hybrid lanes disagree with their single solves: {cost_rel}")
+    results[f"H{horizon}"].update(f32_lanes_same_iterations=same, f32_lanes_cost_rel=cost_rel, f32_lanes_u_abs=u_abs)
+    results["seconds"] = time.perf_counter() - start_phase
+    log(f"batched hybrid phase {results['seconds']:.1f} s")
+    return results
+
+
+def hybrid_parity(report, root):
+    """Float64 lanes of the batched hybrid solve against their single solves on the card, with and without the
+    exact fallback (forced to K4), windows 16 and 1; then the fallback's subsets under "auto" in float32."""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.parallel import batched_hybrid_ilqr_solve
+    from quattro_tpu_torch.solver import ILQRConfig
+
+    config = ILQRConfig(tol=HYBRID_PARITY_TOL, max_iter=HYBRID_PARITY_ITERS, linesearch="fused")
+    results = {}
+    for horizon, name in HYBRID_PARITY_RUNS:
+        pred = GainPredictor.load(os.path.join(root, "checkpoints", name), device="cuda")
+        window, predict = pred.prompt_len, pred.predict_fn()
+        problem = hybrid_problem(torch.float64, HYBRID_PARITY_BATCH, horizon, near=HYBRID_PARITY_NEAR)
+        dyn, cost, fcost, x0, u0, x_ref = problem
+        for fallback in (False, True):
+            sol, counts = counted((K4, K7), report, lambda: batched_hybrid_ilqr_solve(
+                dyn, cost, fcost, predict, window, x0, u0, x_ref, config, x_ref, exact_fallback=fallback,
+                riccati_backend="fused"))
+            trips = int(sol.iterations.max())
+            singles = single_hybrid_solves(problem, predict, window, config, x_ref, fallback)
+            same, cost_rel, u_abs = lanes_against_singles(sol, singles)
+            label = f"H{horizon}_window{window}_{'fallback' if fallback else 'raw'}"
+            log(f"batched hybrid float64 {label}: iterations {sol.iterations.tolist()}, done {sol.converged.tolist()}, "
+                f"{trips} trips, launches {counts}; lanes against their single solves: iterations and flags equal "
+                f"{same}, max cost rel {cost_rel:.3e} (bound {F64_BATCH_COST_RTOL}), max |du| {u_abs:.3e} (bound "
+                f"{F64_BATCH_U_ATOL})")
+            # One K4 and one K7 launch per trip, and one more of each per trip whose exact fallback ran.
+            extra = counts.get(K4, 0) - trips
+            if not (same and cost_rel <= F64_BATCH_COST_RTOL and u_abs <= F64_BATCH_U_ATOL):
+                raise AssertionError(f"float64 batched hybrid {label}: lanes disagree with their single solves")
+            if counts.get(K7) != counts.get(K4) or not (0 <= extra <= trips) or (extra > 0) != fallback:
+                raise AssertionError(f"float64 batched hybrid {label}: launches {counts} for {trips} trips")
+            results[label] = dict(iterations=sol.iterations.tolist(), trips=trips, launches=counts,
+                                  fallback_trips=extra, cost_rel=cost_rel, u_abs=u_abs)
+    # float32 under "auto": the batch of 8 takes the fused backward pass, so subsets of 4 still launch K4.
+    pred = GainPredictor.load(os.path.join(root, "checkpoints", HYBRID_PARITY_RUNS[0][1]), device="cuda")
+    dyn, cost, fcost, x0, u0, x_ref = hybrid_problem(torch.float32, HYBRID_PARITY_BATCH, HYBRID_PARITY_RUNS[0][0],
+                                                     near=HYBRID_PARITY_NEAR)
+    sol, counts = counted((K4, K7), report, lambda: batched_hybrid_ilqr_solve(
+        dyn, cost, fcost, pred.predict_fn(), pred.prompt_len, x0, u0, x_ref, config, x_ref, exact_fallback=True))
+    trips = int(sol.iterations.max())
+    log(f"batched hybrid float32 with the fallback under riccati_backend='auto': iterations {sol.iterations.tolist()}, "
+        f"{trips} trips, launches {counts}")
+    if not (counts.get(K7) == counts.get(K4) and trips < counts.get(K4, 0) <= 2 * trips
+            and torch.isfinite(sol.cost).all()):
+        raise AssertionError(f"float32 fallback under 'auto': launches {counts} for {trips} trips")
+    results["float32_auto_fallback"] = dict(trips=trips, launches=counts)
+    return results
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2075,10 +2352,12 @@ def main() -> int:
     train = phase_train(report, pure_xs)
     mesh = phase_mesh(report)
     examples = phase_examples(report, root, pure_xs)
+    hybrid = phase_hybrid(report, root)
     log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
                                 "k67_timing": k67_times, "bench_iters_per_s": rates,
                                 "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc,
-                                "train": train, "mesh": mesh, "examples": examples, "wall_s": time.perf_counter() - _START}}))
+                                "train": train, "mesh": mesh, "examples": examples, "hybrid": hybrid,
+                                "wall_s": time.perf_counter() - _START}}))
     print(smi)
     print(json.dumps({"kernels": [report[name] for name in (K1, K2, K3, K4, K5, K6, K7, K8, K9)]}))
     print(json.dumps({"ok": True, "device": {

@@ -161,27 +161,25 @@ def mujoco_plant_adapters_batched(system, count):
 def make_dagger_policy(dyn, cost, fcost, predictor, tol, x_ref, state_offset):
     """The RAW hybrid MPC of ``predictor`` as a batched policy ``(x (P, n), u_warm (P, H, m)) -> (u0, u_warm')``.
 
-    JAX's example maps ``hybrid_ilqr_solve`` over the lanes with ``jax.vmap``.
-    The port's hybrid solve is a host loop with data-dependent exits whose
-    kernels are launched through ctypes, which ``torch.func.vmap`` cannot
-    batch, so the lanes are solved one after another and stacked: one solve
-    per lane, the same answers.
+    JAX's example maps ``hybrid_ilqr_solve`` over the lanes with ``jax.vmap``;
+    here ``batched_hybrid_ilqr_solve`` solves them together, one call per
+    control step (one K4 launch over the lanes' tail windows per trip on the
+    card), each lane's answer that lane's single solve.
     """
-    import torch
+    from torch.func import vmap
 
     from quattro_tpu_torch.control import shift_warm_start
-    from quattro_tpu_torch.solver import ILQRConfig, hybrid_ilqr_solve
+    from quattro_tpu_torch.parallel import batched_hybrid_ilqr_solve
+    from quattro_tpu_torch.solver import ILQRConfig
 
     # Deployment-matched: exact_fallback=False, deployment tol and max_iter.
     config = ILQRConfig(tol=tol, max_iter=100)
     predict_fn = predictor.predict_fn()
 
     def policy(xb, uwb):
-        sols = [hybrid_ilqr_solve(dyn, cost, fcost, predict_fn, predictor.prompt_len, x, u, x_ref, config,
-                                  state_offset=state_offset, exact_fallback=False)
-                for x, u in zip(xb, uwb)]
-        return (torch.stack([s.u_seq[0] for s in sols]),
-                torch.stack([shift_warm_start(s.u_seq) for s in sols]))
+        sol = batched_hybrid_ilqr_solve(dyn, cost, fcost, predict_fn, predictor.prompt_len, xb, uwb, x_ref, config,
+                                        state_offset=state_offset, exact_fallback=False)
+        return sol.u_seq[:, 0], vmap(shift_warm_start)(sol.u_seq)
 
     return policy
 

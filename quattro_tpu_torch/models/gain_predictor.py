@@ -4,8 +4,9 @@ Counterpart of ``quattro_tpu/models/gain_predictor.py``. ``load`` reads and
 ``save`` writes the same self-describing npz checkpoints (hyperparameters
 ``hp_*``, normalizer statistics, flax-flattened weights ``param/...``); the
 weights cross with ``params_from_jax`` and ``params_to_jax``. ``predict_fn`` is the inference closure the
-hybrid solve calls: normalize the state-error trajectory and the prompt, run
-the model, de-normalize the output (float32).
+hybrid solves call: normalize the state-error trajectory and the prompt, run
+the model, de-normalize the output (float32), for one trajectory or a batch;
+``predict`` is its host-side form on numpy arrays.
 """
 
 from __future__ import annotations
@@ -110,12 +111,18 @@ class GainPredictor:
         dim_feedforward: int = 128,
         dropout: float = 0.1,
         max_seq_len: int = 100,
+        seq_len_states: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         normalizer: Optional[DataNormalizer] = None,
         state_stride: int = 1,
         device: DeviceLike = None,
     ) -> "GainPredictor":
-        """Fresh random-init predictor; the weights come from ``generator`` (seed 0 if absent)."""
+        """Fresh random-init predictor; the weights come from ``generator`` (seed 0 if absent).
+
+        ``seq_len_states`` is accepted for the JAX signature's sake: there it
+        sizes the dummy input that flax initializes from; no parameter shape
+        depends on it.
+        """
         dev = resolve_device(device)
         module = TransformerPredictor(
             state_dim, control_dim, d_model, nhead, num_decoder_layers, dim_feedforward,
@@ -188,16 +195,36 @@ class GainPredictor:
             self._by_dtype[dtype] = copy.deepcopy(self.module).to(dtype)
         return self._by_dtype[dtype]
 
-    def predict_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-        """Closure ``(x_err_seq (T, n), kK_seq (>=P, c)) -> (target_len, c)`` in float32."""
+    def predict_fn(
+        self, compute_dtype: Optional[torch.dtype] = None
+    ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """Closure ``(x_err_seq (T, n), kK_seq (>=P, c)) -> (target_len, c)`` in float32.
+
+        With a leading batch axis, ``(B, T, n), (B, >=P, c) -> (B, target_len, c)``,
+        each row what the unbatched call gives for it. The last ``prompt_len``
+        prompt rows are used; dropout is off. The model computes in the
+        promoted dtype of its inputs, or in ``compute_dtype`` where given
+        (``torch.bfloat16``: the body in bfloat16, normalization and output
+        in float32, as JAX's ``compute_dtype=jnp.bfloat16``).
+        """
         norm, stride = self.normalizer, self.state_stride
 
         @torch.no_grad()
         def predict(x_err_seq: torch.Tensor, kk_seq: torch.Tensor) -> torch.Tensor:
-            x_norm = norm.transform_x(x_err_seq[::stride])[None]
-            prompt = norm.transform_u(kk_seq)[-self.prompt_len :][None]
-            dtype = torch.promote_types(x_norm.dtype, prompt.dtype)
+            single = x_err_seq.dim() == 2
+            if single:
+                x_err_seq, kk_seq = x_err_seq[None], kk_seq[None]
+            x_norm = norm.transform_x(x_err_seq[:, ::stride])
+            prompt = norm.transform_u(kk_seq)[:, -self.prompt_len :]
+            dtype = compute_dtype or torch.promote_types(x_norm.dtype, prompt.dtype)
             pred = self._module_for(dtype)(x_norm.to(dtype), prompt.to(dtype))
-            return norm.inverse_transform_u(pred[0].to(torch.float32))
+            pred = norm.inverse_transform_u(pred.to(torch.float32))
+            return pred[0] if single else pred
 
         return predict
+
+    def predict(self, x_seq: np.ndarray, kk_seq: np.ndarray) -> np.ndarray:
+        """Host-side ``predict_fn()``: numpy arrays in, a numpy array out."""
+        device = self.normalizer.x_mean.device
+        out = self.predict_fn()(torch.as_tensor(x_seq, device=device), torch.as_tensor(kk_seq, device=device))
+        return out.cpu().numpy()

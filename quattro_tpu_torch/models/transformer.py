@@ -53,14 +53,14 @@ def dropout(x: torch.Tensor, rate: float, rand: Optional[Rand] = None) -> torch.
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
-    """Standard sin/cos table (max_len, d_model) in float64: even columns sin, odd cos."""
+def sinusoidal_positional_encoding(max_len: int, d_model: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard sin/cos table (max_len, d_model): even columns sin, odd cos, computed in float64, cast to ``dtype``."""
     position = np.arange(max_len, dtype=np.float64)[:, None]
     div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * (-np.log(10000.0) / d_model))
     table = np.zeros((max_len, d_model), dtype=np.float64)
     table[:, 0::2] = np.sin(position * div_term)
     table[:, 1::2] = np.cos(position * div_term[: d_model // 2])
-    return table
+    return torch.from_numpy(table).to(dtype)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -138,7 +138,7 @@ class TransformerPredictor(nn.Module):
         )
         self.output_linear = nn.Linear(d_model, control_dim)
         self.register_buffer(
-            "positions", torch.from_numpy(sinusoidal_positional_encoding(max_len=max_seq_len, d_model=d_model)),
+            "positions", sinusoidal_positional_encoding(max_len=max_seq_len, d_model=d_model, dtype=torch.float64),
             persistent=False,
         )
 

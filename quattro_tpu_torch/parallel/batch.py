@@ -20,6 +20,11 @@ launch per trip (kernel K7, ``solver/rollout.py::line_search_batched_fused``).
 ``batched_ilqr_solve_with_logs`` runs the same loop and also writes each
 trip's entry into per-lane log buffers (the training-data collection's solve).
 
+``batched_hybrid_ilqr_solve`` is ``vmap(hybrid_ilqr_solve)``: the same masked
+loop around the transformer-accelerated trip (the exact pass over the tail
+window of every lane in one K4 launch where K4 takes the shape, one predictor
+forward over the batch, the batched line search).
+
 ``sharded_ilqr_solve`` cuts the batch over a device mesh and runs
 ``batched_ilqr_solve`` on each shard.
 """
@@ -35,8 +40,10 @@ from torch.func import vmap
 from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
 from quattro_tpu_torch.parallel.mesh import GlobalArray, Mesh, assemble, shard
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
-from quattro_tpu_torch.solver.ilqr import ILQRConfig, ILQRLogs, ILQRSolution, _backward, empty_logs
-from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward_associative
+from quattro_tpu_torch.solver.ilqr import (
+    GainPredictFn, ILQRConfig, ILQRLogs, ILQRSolution, _backward, empty_logs, pack_gain_tokens, unpack_gain_tokens,
+)
+from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward, riccati_backward_associative
 from quattro_tpu_torch.solver.rollout import line_search, line_search_batched_fused, simulate, trajectory_cost
 
 BACKENDS = ("auto", "fused", "fused_bf16", "vmap")
@@ -111,7 +118,8 @@ def batched_ilqr_solve(
     (int32) and ``converged`` (bool) are (B,) tensors.
     """
     config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
-    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward)
+    trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
+    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip)
 
 
 def batched_ilqr_solve_with_logs(
@@ -142,7 +150,8 @@ def batched_ilqr_solve_with_logs(
     if logs is None:
         batch, horizon, m = u_init_batch.shape
         logs = empty_logs((batch, config.max_iter), horizon, x0_batch.shape[-1], m, x0_batch.dtype, x0_batch.device)
-    solution = _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, backward, logs)
+    trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
+    solution = _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip, logs)
     return solution, logs
 
 
@@ -223,7 +232,7 @@ def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
             return res.k_seq, res.big_k_seq
 
         return assoc
-    # reg is a (B,) tensor under adaptive_reg (see _masked_solve), else the static float.
+    # reg is a (B,) tensor under adaptive_reg (see _exact_trips), else the static float.
     per_lane = vmap(partial(_backward(config), use_chol=config.chol_solve),
                     in_dims=(0, 0, 0, 0, 0, 0 if config.adaptive_reg else None))
 
@@ -234,69 +243,228 @@ def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
     return lanes
 
 
-def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: ILQRConfig, backward,
+def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: ILQRConfig, trip,
                   logs: Optional[ILQRLogs] = None) -> ILQRSolution:
-    """``vmap(ilqr_solve)``'s semantics as one loop over the batch (see the module docstring).
+    """``vmap`` of a per-lane solve loop as one loop over the batch (see the module docstring).
 
-    With ``logs`` (``(B, max_iter, ...)`` buffers) each trip also writes its
-    entry for the lanes active at its start (``batched_ilqr_solve_with_logs``).
+    ``trip(xs, us, cs, active) -> (found, alpha, new_x, new_u, new_cost, k,
+    big_k, now_done)`` is one iteration of every lane (``_exact_trips``,
+    ``_hybrid_trips``); the loop keeps what it returns for the active lanes
+    only. With ``logs`` (``(B, max_iter, ...)`` buffers) each trip also writes
+    its entry for the lanes active at its start (``batched_ilqr_solve_with_logs``).
     """
     batch, horizon, m = u_init_batch.shape
     n = x0_batch.shape[-1]
-    xs = vmap(partial(simulate, dynamics))(x0_batch, u_init_batch)
+    xs, cs = _initial_batch(dynamics, cost, final_cost, x0_batch, u_init_batch)
     us = u_init_batch
-    cs = vmap(partial(trajectory_cost, cost, final_cost))(xs, us)
-    alphas = torch.as_tensor(config.alphas, dtype=xs.dtype, device=xs.device)
-    if config.linesearch == "fused":
-        def search(xs, us, k, big_k, cs):
-            return line_search_batched_fused(dynamics, cost, final_cost, x0_batch, xs, us, k, big_k, cs, alphas)
-    else:
-        lane = partial(line_search, dynamics, cost, final_cost, unroll=config.linesearch_unroll,
-                       fuse_cost=config.linesearch_fuse_cost)
-
-        def search(xs, us, k, big_k, cs):
-            return vmap(lane, in_dims=(0, 0, 0, 0, 0, 0, None))(x0_batch, xs, us, k, big_k, cs, alphas)
-
     ks = u_init_batch.new_zeros((batch, horizon, m))
     big_ks = u_init_batch.new_zeros((batch, horizon, m, n))
     done = torch.zeros(batch, dtype=torch.bool, device=xs.device)
     iters = torch.zeros(batch, dtype=torch.int32, device=xs.device)
-    # JAX carries reg per lane for the LM mu-schedule; otherwise it is the static config.reg.
-    reg = torch.full((batch,), config.reg, dtype=xs.dtype, device=xs.device) if config.adaptive_reg else config.reg
-    trip = 0
-    while trip < config.max_iter and not bool(done.all()):  # the trip's one host read
-        a, b = vmap(partial(linearize_dynamics, dynamics))(xs, us)
-        exp = vmap(partial(quadratize_cost, cost))(xs, us)
-        fexp = vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
-        k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
-        found, alpha, new_x, new_u, new_cost = search(xs, us, k, big_k, cs)
-
+    t = 0
+    while t < config.max_iter and not bool(done.all()):  # the trip's one host read
         active = ~done
+        found, alpha, new_x, new_u, new_cost, k, big_k, now_done = trip(xs, us, cs, active)
+        if logs is not None:
+            entry = (xs, new_u, cs, new_cost, k, big_k, alpha, found, active)
+            for buf, value in zip(logs, entry):
+                slot = buf[:, t]
+                slot.copy_(_keep_active(active, (value,), (slot,))[0])
+        xs, us, cs, ks, big_ks = _keep_active(active, (new_x, new_u, new_cost, k, big_k), (xs, us, cs, ks, big_ks))
+        done = done | now_done
+        iters = iters + active.to(iters.dtype)
+        t += 1
+    return ILQRSolution(xs, us, cs, iters, done, ks, big_ks)
+
+
+def _keep_active(active: torch.Tensor, new, old):
+    """Each of ``new`` on the ``active`` lanes and the matching one of ``old`` elsewhere."""
+    return tuple(torch.where(active.reshape((-1,) + (1,) * (a.dim() - 1)), a, b) for a, b in zip(new, old))
+
+
+def _initial_batch(dynamics, cost, final_cost, x0_batch, u_init_batch):
+    """The open-loop rollouts of the warm starts and their costs."""
+    xs = vmap(partial(simulate, dynamics))(x0_batch, u_init_batch)
+    return xs, vmap(partial(trajectory_cost, cost, final_cost))(xs, u_init_batch)
+
+
+def _alphas(config: ILQRConfig, x0_batch: torch.Tensor) -> torch.Tensor:
+    """The line search's step sizes."""
+    return torch.as_tensor(config.alphas, dtype=x0_batch.dtype, device=x0_batch.device)
+
+
+def _batched_line_search(dynamics, cost, final_cost, config: ILQRConfig):
+    """``(x0, xs, us, k, big_k, cs, alphas) -> (found, alpha, new_x, new_u, new_cost)`` over a batch.
+
+    One K7 launch with ``linesearch="fused"``, else ``vmap(line_search)``.
+    """
+    if config.linesearch == "fused":
+        return partial(line_search_batched_fused, dynamics, cost, final_cost)
+    lane = partial(line_search, dynamics, cost, final_cost, unroll=config.linesearch_unroll,
+                   fuse_cost=config.linesearch_fuse_cost)
+    return vmap(lane, in_dims=(0, 0, 0, 0, 0, 0, None))
+
+
+def _derivatives(dynamics, cost, final_cost, xs, us):
+    """Every lane's stage Jacobians and cost expansion, and the final cost's at ``xs[:, -1]``."""
+    a, b = vmap(partial(linearize_dynamics, dynamics))(xs, us)
+    exp = vmap(partial(quadratize_cost, cost))(xs, us)
+    fexp = vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
+    return a, b, exp, fexp
+
+
+def _exact_trip(dynamics, cost, final_cost, backward, search, x0, xs, us, cs, reg, alphas):
+    """One full-horizon iLQR iteration of every lane: ``(found, alpha, new_x, new_u, new_cost, k, big_k)``."""
+    a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs, us)
+    k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
+    return (*search(x0, xs, us, k, big_k, cs, alphas), k, big_k)
+
+
+def _exact_trips(dynamics, cost, final_cost, x0_batch, config: ILQRConfig, backward):
+    """``_masked_solve``'s trip for ``vmap(ilqr_solve)``: the full-horizon iteration and its stopping rule.
+
+    Under ``adaptive_reg`` the trip carries JAX's per-lane reg: the LM
+    mu-schedule shrinks it on success and grows it on failure, and a lane ends
+    only when it converges or its mu saturates. Otherwise every trip runs at
+    the static ``config.reg``.
+    """
+    search, alphas = _batched_line_search(dynamics, cost, final_cost, config), _alphas(config, x0_batch)
+    reg = (torch.full((x0_batch.shape[0],), config.reg, dtype=x0_batch.dtype, device=x0_batch.device)
+           if config.adaptive_reg else config.reg)
+
+    def trip(xs, us, cs, active):
+        nonlocal reg
+        found, alpha, new_x, new_u, new_cost, k, big_k = _exact_trip(
+            dynamics, cost, final_cost, backward, search, x0_batch, xs, us, cs, reg, alphas)
         small = (cs - new_cost).abs() < config.tol
         if config.adaptive_reg:
-            # LM mu-schedule per lane: shrink on success, grow and retry on failure;
-            # a lane ends only when it converges or its mu saturates.
             reg_next = torch.where(found, torch.clamp(reg / config.reg_factor, min=config.reg),
                                    torch.clamp(reg * config.reg_factor, max=config.reg_max))
             now_done = (found & small) | (~found & (reg >= config.reg_max))
             reg = torch.where(active, reg_next, reg)
         else:
             now_done = ~found | small
+        return found, alpha, new_x, new_u, new_cost, k, big_k, now_done
 
-        def sel(new, old):
-            return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+    return trip
 
-        if logs is not None:
-            entry = (xs, new_u, cs, new_cost, k, big_k, alpha, found, active)
-            for buf, value in zip(logs, entry):
-                slot = buf[:, trip]
-                slot.copy_(sel(value, slot))
-        xs, us, cs = sel(new_x, xs), sel(new_u, us), sel(new_cost, cs)
-        ks, big_ks = sel(k, ks), sel(big_k, big_ks)
-        done = done | now_done
-        iters = iters + active.to(iters.dtype)
-        trip += 1
-    return ILQRSolution(xs, us, cs, iters, done, ks, big_ks)
+
+def batched_hybrid_ilqr_solve(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    predict_fn: GainPredictFn,
+    window: int,
+    x0_batch: torch.Tensor,  # (B, n)
+    u_init_batch: torch.Tensor,  # (B, H, m)
+    x_ref: torch.Tensor,
+    config: ILQRConfig = ILQRConfig(),
+    state_offset: Optional[torch.Tensor] = None,
+    exact_fallback: bool = False,
+    riccati_backend: str = "auto",
+) -> ILQRSolution:
+    """A batch of transformer-accelerated solves: ``vmap(hybrid_ilqr_solve)``'s semantics.
+
+    Each lane's result is that lane's ``hybrid_ilqr_solve``. ``_masked_solve``'s
+    loop (finished lanes frozen, per-lane ``iterations`` and ``converged``, one
+    host read of ``done.all()`` per trip) around a trip that is: the
+    derivatives of the last ``window`` steps of every lane under
+    ``torch.func.vmap``; the tail's exact backward pass over all lanes
+    (``_tail_backward``: one K4 launch on CUDA where K4 takes the shape); the
+    tail gains packed as each lane's prompt; one ``predict_fn`` call over the
+    batch, ``(B, H+1, n), (B, window, m(1+n)) -> (B, H - window, m(1+n))``,
+    on the state errors ``x_seq - x_ref + state_offset`` (``x_ref`` and
+    ``state_offset`` shared by the lanes), its output promoted to the tail's
+    dtype; then the line search over [head, tail] (one K7 launch with
+    ``linesearch="fused"``). Like JAX's hybrid solve, the tail runs the
+    sequential law whatever ``config.riccati`` says, at the static
+    ``config.reg``.
+
+    ``exact_fallback``: the active lanes whose hybrid step would end them (no
+    step accepted, or |dJ| < tol) redo the iteration exactly, over the full
+    horizon, and only that iteration's verdict can end them. Those lanes are
+    gathered (a second host read per trip) and solved together, so a
+    trip in which no lane needs it launches nothing more, and the exact pass
+    costs the lanes that need it rather than the batch. Its backward pass is
+    the batched backend's (``riccati_backend``, dispatched as
+    ``batched_ilqr_solve`` dispatches it), chosen once for the whole batch:
+    a gathered subset of fewer than 8 lanes keeps the fused K4 pass that
+    "auto" picks for a float32 CUDA batch of 8 or more. Where a lane's two
+    branches differ in dtype, the carry takes the wider one, as JAX's
+    ``lax.cond`` promotion does.
+
+    Returns an ``ILQRSolution`` with a leading batch axis, as
+    ``batched_ilqr_solve`` returns.
+    """
+    trip = _hybrid_trips(dynamics, cost, final_cost, predict_fn, window, x0_batch, u_init_batch, x_ref, config,
+                         state_offset, exact_fallback, riccati_backend)
+    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip)
+
+
+def _tail_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
+    """The hybrid trip's exact pass over the tail window: ``(a, b, exp, v_x, v_xx) -> (k, K)``.
+
+    JAX's tail pass is the sequential law with ``chol_solve``, per lane. K4
+    computes that law (with its own Cholesky) for every lane in one launch,
+    so it takes the tail wherever it takes the shape: n <= 16 and m <= 8, and
+    on CUDA float32 or float64 data (on the CPU, its plain form). Elsewhere
+    the sequential pass runs under ``torch.func.vmap``.
+    """
+    n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
+    if n <= MAX_N and m <= MAX_M and (not x0_batch.is_cuda or x0_batch.dtype in (torch.float32, torch.float64)):
+        return partial(riccati_backward_batched_fused_auto, reg=config.reg)
+    per_lane = vmap(partial(riccati_backward, reg=config.reg, use_chol=config.chol_solve))
+
+    def lanes(a, b, exp, v_x, v_xx):
+        res = per_lane(a, b, exp, v_x, v_xx)
+        return res.k_seq, res.big_k_seq
+
+    return lanes
+
+
+def _hybrid_gains(predict_fn, xs, x_ref, state_offset, k_tail, big_k_tail):
+    """The full-horizon gains of every lane: the predicted head, from the tail gains as the prompt, then the tail."""
+    m, n = big_k_tail.shape[-2:]
+    predicted = predict_fn(xs - x_ref + state_offset, pack_gain_tokens(k_tail, big_k_tail))
+    k_head, big_k_head = unpack_gain_tokens(predicted.to(k_tail.dtype), m, n)
+    return torch.cat([k_head, k_tail], dim=1), torch.cat([big_k_head, big_k_tail], dim=1)
+
+
+def _hybrid_trips(dynamics, cost, final_cost, predict_fn, window, x0_batch, u_init_batch, x_ref,
+                  config: ILQRConfig, state_offset, exact_fallback, riccati_backend):
+    """``_masked_solve``'s trip for ``vmap(hybrid_ilqr_solve)``, the exact fallback included."""
+    head = u_init_batch.shape[1] - window
+    if state_offset is None:
+        state_offset = torch.zeros_like(x0_batch[0])
+    # Every iteration of a hybrid solve runs at config.reg: no mu-schedule for the exact one either.
+    _, exact_backward = _select_backend(config._replace(adaptive_reg=False), x0_batch, u_init_batch, riccati_backend)
+    tail_backward = _tail_backward(config, x0_batch, u_init_batch)
+    search, alphas = _batched_line_search(dynamics, cost, final_cost, config), _alphas(config, x0_batch)
+
+    def trip(xs, us, cs, active):
+        a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs[:, head:], us[:, head:])
+        k_tail, big_k_tail = tail_backward(a, b, exp, fexp.v_x, fexp.v_xx)
+        k, big_k = _hybrid_gains(predict_fn, xs, x_ref, state_offset, k_tail, big_k_tail)
+        found, alpha, new_x, new_u, new_cost = search(x0_batch, xs, us, k, big_k, cs, alphas)
+        now_done = ~found | ((cs - new_cost).abs() < config.tol)
+        if exact_fallback:
+            lanes = torch.nonzero(active & now_done).squeeze(1)  # host read: the lanes to redo exactly
+            now_done = torch.zeros_like(now_done)
+            if lanes.numel():
+                exact = _exact_trip(dynamics, cost, final_cost, exact_backward, search, x0_batch[lanes], xs[lanes],
+                                    us[lanes], cs[lanes], config.reg, alphas)
+                found, alpha, new_x, new_u, new_cost, k, big_k = (
+                    _put_lanes(h, lanes, e) for h, e in zip((found, alpha, new_x, new_u, new_cost, k, big_k), exact))
+                now_done[lanes] = ~exact[0] | ((cs[lanes] - exact[4]).abs() < config.tol)
+        return found, alpha, new_x, new_u, new_cost, k, big_k, now_done
+
+    return trip
+
+
+def _put_lanes(hybrid: torch.Tensor, lanes: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """``hybrid`` with rows ``lanes`` replaced by ``exact``, in the wider of the two dtypes."""
+    dtype = torch.promote_types(hybrid.dtype, exact.dtype)
+    return hybrid.to(dtype).index_put((lanes,), exact.to(dtype))
 
 
 def sharded_ilqr_solve(

@@ -40,7 +40,7 @@ from quattro_tpu_torch.solver.rollout import (
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 FinalCost = Callable[[torch.Tensor], torch.Tensor]
-# predict(x_err_seq (H+1, n), prompt (W, m*(1+n))) -> (H - W, m*(1+n))
+# predict(x_err_seq (H+1, n), prompt (W, m*(1+n))) -> (H - W, m*(1+n)); batched solves give each a leading (B,)
 GainPredictFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 class ILQRConfig(NamedTuple):
@@ -327,14 +327,17 @@ def ilqr_solve_with_logs(
 
 
 def pack_gain_tokens(k_seq: torch.Tensor, big_k_seq: torch.Tensor) -> torch.Tensor:
-    """Gain tokens interleaved per control channel: ``[k_0, K[0, :], k_1, K[1, :], ...]``."""
-    return torch.cat([k_seq[:, :, None], big_k_seq], dim=-1).reshape(k_seq.shape[0], -1)
+    """Gain tokens interleaved per control channel: ``[k_0, K[0, :], k_1, K[1, :], ...]``.
+
+    (T, m), (T, m, n) -> (T, m(1+n)); leading batch axes pass through.
+    """
+    return torch.cat([k_seq[..., None], big_k_seq], dim=-1).flatten(-2)
 
 
 def unpack_gain_tokens(tokens: torch.Tensor, m: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inverse of ``pack_gain_tokens``: (T, m(1+n)) -> k (T, m), K (T, m, n)."""
-    kk = tokens.reshape(tokens.shape[0], m, 1 + n)
-    return kk[:, :, 0], kk[:, :, 1:]
+    """Inverse of ``pack_gain_tokens``: (..., T, m(1+n)) -> k (..., T, m), K (..., T, m, n)."""
+    kk = tokens.unflatten(-1, (m, 1 + n))
+    return kk[..., 0], kk[..., 1:]
 
 
 def hybrid_ilqr_solve(

@@ -504,9 +504,10 @@ def test_k4_packed_lanes_are_k1_bit_for_bit(cuda_device, n, m, tile_s, batch, st
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["natural", "packed", "bf16"])
-@pytest.mark.parametrize("horizon", sorted({0, 1, 2, K4_RING - 1, K4_RING, K4_RING + 1, 2 * K4_RING + 1}))
+@pytest.mark.parametrize("horizon", sorted({0, 1, 2, K4_RING - 1, K4_RING, K4_RING + 1, 2 * K4_RING + 1, 16}))
 def test_k4_horizons_around_the_ring(cuda_device, horizon, layout):
-    """H = 0, 1, 2 and around the ring's depth: shapes, the plain form, and lanes equal to K1."""
+    """H = 0, 1, 2, around the ring's depth and 16 (the batched hybrid solve's tail windows are 1 and 16):
+    shapes, the plain form, and lanes equal to K1."""
     dtype = torch.float32 if layout == "bf16" else torch.float64
     stream = torch.bfloat16 if layout == "bf16" else None
     a, b_mat, exp, v_x, v_xx = batched_step_stages(cuda_device, 128, horizon, 12, 4, dtype=dtype)
@@ -720,6 +721,83 @@ def test_batched_solve_launches_k4_and_k7_once_per_trip(cuda_device, linesearch)
     assert torch.equal(fused.iterations, ref.iterations) and torch.equal(fused.converged, ref.converged)
     np.testing.assert_allclose(fused.cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-9)
     np.testing.assert_allclose(fused.u_seq.cpu().numpy(), ref.u_seq.cpu().numpy(), atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_fallback", [False, True])
+def test_batched_hybrid_lanes_are_the_single_solves(cuda_device, exact_fallback):
+    """``batched_hybrid_ilqr_solve`` on the card, float64, a small random predictor (state_stride 2): one K4 over
+    the tail windows and one K7 per trip, one more of each per trip whose fallback ran (forced to K4); each lane
+    its single ``hybrid_ilqr_solve`` (iterations and flags equal, cost rtol 1e-9, u atol 1e-8)."""
+    from quattro_tpu_torch.models import GainPredictor
+    from quattro_tpu_torch.parallel import batched_hybrid_ilqr_solve
+    from quattro_tpu_torch.solver import hybrid_ilqr_solve
+
+    horizon, window, batch = 24, 4, 4
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=cuda_device)
+    x_ref = t([0.0, 0.0, 0.5] + [0.0] * 9)
+    dyn = make_discrete(QuadrotorField(), 0.01, "rk4")
+    cost = make_quadratic_cost(t(Q), t([0.01] * 4), x_ref, barrier_alpha=1000.0)
+    fcost = make_quadratic_final_cost(t([10.0 * q for q in Q]), x_ref)
+    rng = np.random.default_rng(12)
+    x0s = x_ref + t(0.05 * rng.standard_normal((batch, 12)))
+    x0s[:2, 2] = t(0.2 + 0.3 * rng.random(2))
+    u0s = t(np.full((batch, horizon, 4), 2.4525))
+    pred = GainPredictor.create(12, 52, window, horizon - window, d_model=16, nhead=2, num_decoder_layers=1,
+                                dim_feedforward=32, max_seq_len=64, state_stride=2, device=cuda_device)
+    cfg = ILQRConfig(tol=1e-1, max_iter=3, linesearch="fused")
+    _build.reset_launches()
+    sol = batched_hybrid_ilqr_solve(dyn, cost, fcost, pred.predict_fn(), window, x0s, u0s, x_ref, cfg, x_ref,
+                                    exact_fallback=exact_fallback, riccati_backend="fused")
+    torch.cuda.synchronize()
+    counts, trips = dict(_build.launches), int(sol.iterations.max())
+    k4, k7 = counts.get(fused_riccati.BATCHED_KERNEL, 0), counts.get(fused_rollout.BATCHED_KERNEL, 0)
+    assert trips >= 1 and k4 == k7 and trips <= k4 <= 2 * trips and (k4 > trips) == exact_fallback
+    for b in range(batch):
+        one = hybrid_ilqr_solve(dyn, cost, fcost, pred.predict_fn(), window, x0s[b], u0s[b], x_ref, cfg, x_ref,
+                                exact_fallback=exact_fallback)
+        assert int(sol.iterations[b]) == one.iterations and bool(sol.converged[b]) == one.converged
+        np.testing.assert_allclose(float(sol.cost[b]), float(one.cost), rtol=1e-9)
+        np.testing.assert_allclose(sol.u_seq[b].cpu().numpy(), one.u_seq.cpu().numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_fallback", [False, True])
+def test_batched_hybrid_wide_state_tail_runs_without_k4(cuda_device, exact_fallback):
+    """n = 18 > 16, beyond K4: the tail window runs the sequential pass under ``vmap`` on the card (no K4
+    launch, no error), and each lane is its single ``hybrid_ilqr_solve`` (iterations and flags equal, cost rtol
+    1e-9, u atol 1e-8)."""
+    from quattro_tpu_torch.models import DataNormalizer, GainPredictor
+    from quattro_tpu_torch.parallel import batched_hybrid_ilqr_solve
+    from quattro_tpu_torch.solver import hybrid_ilqr_solve
+
+    n, m, horizon, window, batch = 18, 2, 12, 3, 3
+    rng = np.random.default_rng(7)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=cuda_device)
+    a, b = t(np.eye(n) + 0.05 * rng.standard_normal((n, n))), t(0.1 * rng.standard_normal((n, m)))
+    x_ref = t(0.1 * rng.standard_normal(n))
+    dyn = lambda x, u: a @ x + b @ u
+    cost = make_quadratic_cost(t(np.ones(n)), t(np.full(m, 0.1)), x_ref)
+    fcost = make_quadratic_final_cost(t(np.full(n, 10.0)), x_ref)
+    x0s, u0s = t(rng.standard_normal((batch, n))), t(np.zeros((batch, horizon, m)))
+    # Head gains of about 1e-3: an ulp between the batched and the unbatched forward stays far below 1e-8 in u.
+    c = m * (1 + n)
+    norm = DataNormalizer(torch.zeros(n), torch.ones(n), torch.zeros(c), torch.full((c,), 1e-3))
+    pred = GainPredictor.create(n, c, window, horizon - window, d_model=16, nhead=2, num_decoder_layers=1,
+                                dim_feedforward=32, max_seq_len=64, normalizer=norm, state_stride=2,
+                                device=cuda_device)
+    cfg = ILQRConfig(tol=1e-4, max_iter=3)
+    _build.reset_launches()
+    sol = batched_hybrid_ilqr_solve(dyn, cost, fcost, pred.predict_fn(), window, x0s, u0s, x_ref, cfg,
+                                    exact_fallback=exact_fallback, riccati_backend="vmap")
+    torch.cuda.synchronize()
+    assert dict(_build.launches).get(fused_riccati.BATCHED_KERNEL, 0) == 0
+    for lane in range(batch):
+        one = hybrid_ilqr_solve(dyn, cost, fcost, pred.predict_fn(), window, x0s[lane], u0s[lane], x_ref, cfg,
+                                exact_fallback=exact_fallback)
+        assert int(sol.iterations[lane]) == one.iterations and bool(sol.converged[lane]) == one.converged
+        np.testing.assert_allclose(float(sol.cost[lane]), float(one.cost), rtol=1e-9)
+        np.testing.assert_allclose(sol.u_seq[lane].cpu().numpy(), one.u_seq.cpu().numpy(), rtol=0, atol=1e-8)
 
 
 @pytest.mark.cuda

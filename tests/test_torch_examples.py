@@ -3,8 +3,8 @@
 The setups, the cart-pole grid and the MuJoCo plant adapters against
 ``examples/collect_and_train.py``'s functions on the same inputs (float64
 where JAX's setup computes in float64); the quadrotor's Latin hypercube (one
-draw per stratum inside the envelope); the DAgger policy, a loop over lanes in
-the port, against JAX's ``vmap`` of the hybrid solve on two lanes; ``.npz``
+draw per stratum inside the envelope); the DAgger policy, the port's batched
+hybrid solve, against JAX's ``vmap`` of the hybrid solve on two lanes; ``.npz``
 checkpoints crossing between the packages; small ``main(...)`` runs on the CPU
 of each plant, and of the two MuJoCo sims; and ``plot_results_cuda.py
 --no-run`` on a synthetic log.
@@ -128,9 +128,9 @@ class HeldPredictor:
     prompt_len = 5
 
     def predict_fn(self):
-        def predict(x_err, prompt):
-            scale = 1.0 + 0.1 * (x_err[:25] ** 2).sum(-1, keepdims=True)
-            return prompt[:1] * scale
+        def predict(x_err, prompt):  # leading batch axes pass through
+            scale = 1.0 + 0.1 * (x_err[..., :25, :] ** 2).sum(-1, keepdims=True)
+            return prompt[..., :1, :] * scale
         return predict
 
 
@@ -157,8 +157,8 @@ DAGGER_X0 = np.array([[0.1, 0.0, 0.2, 0.0], [-0.2, 0.1, -0.15, 0.0]])
 
 
 def test_dagger_policy_matches_jax_vmap():
-    """The port's per-lane loop of RAW hybrid solves against JAX's ``vmap`` policy on two lanes (float64):
-    the applied controls and the shifted warm starts within 1e-8."""
+    """The port's batched RAW hybrid solve against JAX's ``vmap`` policy on two lanes (float64): the applied
+    controls and the shifted warm starts within 1e-8."""
     jdyn, jcost, jfcost, n, m = jex.cartpole_setup(30)
     tdyn, tcost, tfcost, _, _ = tex.cartpole_setup(30, "cpu", torch.float64)
     u_warm = np.zeros((2, 30, m))
@@ -174,8 +174,9 @@ def test_dagger_policy_matches_jax_vmap():
 
 
 def test_dagger_policy_is_the_single_solve_per_lane():
-    """With the shipped cart-pole predictor: each lane of the port's policy is bit for bit the port's own
-    single hybrid solve of that lane."""
+    """With the shipped cart-pole predictor: each lane of the port's policy is the port's own single hybrid
+    solve of that lane, within the batched hybrid solve's lane tolerance (u 1e-8): the batch's tail pass is
+    K4's law, the single solve's the sequential pass, which round differently."""
     from quattro_tpu_torch.control import shift_warm_start
     from quattro_tpu_torch.solver import ILQRConfig, hybrid_ilqr_solve
 
@@ -189,7 +190,9 @@ def test_dagger_policy_is_the_single_solve_per_lane():
         sol = hybrid_ilqr_solve(tdyn, tcost, tfcost, pred.predict_fn(), pred.prompt_len,
                                 torch.from_numpy(DAGGER_X0[lane]), u_warm[lane], zeros,
                                 ILQRConfig(tol=1e-1, max_iter=100), state_offset=zeros, exact_fallback=False)
-        assert torch.equal(u0[lane], sol.u_seq[0]) and torch.equal(u_next[lane], shift_warm_start(sol.u_seq))
+        np.testing.assert_allclose(u0[lane].numpy(), sol.u_seq[0].numpy(), rtol=0, atol=DAGGER_U_ABS)
+        np.testing.assert_allclose(u_next[lane].numpy(), shift_warm_start(sol.u_seq).numpy(), rtol=0,
+                                   atol=DAGGER_U_ABS)
 
 
 def small_hparams():
@@ -316,3 +319,28 @@ def test_plot_results_from_a_synthetic_log(tmp_path, monkeypatch):
     load_example("plot_results_cuda").main(["--no-run", "--tmp", str(logs), "--out", str(out)])
     assert sorted(os.listdir(out)) == ["cartpole_result.png", "quadrotor_result.png"]
     assert all(os.path.getsize(out / f) > 10_000 for f in os.listdir(out))
+
+
+def notebook_code_cells(path):
+    import json
+
+    return ["".join(cell["source"]) for cell in json.loads(path.read_text())["cells"] if cell["cell_type"] == "code"]
+
+
+def test_training_walkthrough_notebook_runs_on_the_cpu(tmp_path, monkeypatch):
+    """``examples/training_walkthrough_cuda.ipynb``'s code cells, in order in one namespace, as a kernel runs
+    them with ``WALKTHROUGH_DEVICE=cpu`` (its own sizes: 16 initial states, 10 MPC steps, 5 epochs)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    monkeypatch.setenv("WALKTHROUGH_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)  # the checkpoint cell writes into the working directory
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    namespace = {}
+    for source in notebook_code_cells(EXAMPLES / "training_walkthrough_cuda.ipynb"):
+        exec(compile(source, "training_walkthrough_cuda.ipynb", "exec"), namespace)
+    assert namespace["x0s"].device.type == "cpu" and namespace["dataset"].x_data.shape[1:] == (31, 4)
+    assert np.isfinite(namespace["result"].train_loss_history).all()
+    sols = namespace["sols"]
+    assert sols.u_seq.shape == (16, 30, 1) and torch.isfinite(sols.cost).all() and bool(sols.converged.all())
+    assert (tmp_path / "cartpole_gain_cuda.npz").exists()

@@ -1,11 +1,12 @@
 """The port stands alone: no module of quattro_tpu_torch, not chip_smoke.py and
-not the port's examples (``examples/*_cuda.py``) imports JAX, flax, optax or
-anything of quattro_tpu.
+not the port's examples (``examples/*_cuda.py`` and the code cells of
+``examples/*_cuda.ipynb``) imports JAX, flax, optax or anything of quattro_tpu.
 
 Checked by scanning each file's syntax tree, without importing it.
 """
 
 import ast
+import json
 import pathlib
 
 import pytest
@@ -13,6 +14,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = (sorted((ROOT / "quattro_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "examples").glob("*_cuda.py")))
+NOTEBOOKS = sorted((ROOT / "examples").glob("*_cuda.ipynb"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "quattro_tpu")
 
 
@@ -62,3 +64,16 @@ def test_no_jax_or_quattro_tpu_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_covers_the_notebook():
+    assert [p.name for p in NOTEBOOKS] == ["training_walkthrough_cuda.ipynb"]
+
+
+@pytest.mark.parametrize("path", NOTEBOOKS, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_quattro_tpu_import_in_notebook_cells(path):
+    cells = ["".join(c["source"]) for c in json.loads(path.read_text())["cells"] if c["cell_type"] == "code"]
+    assert cells
+    for i, source in enumerate(cells):
+        bad = [m for m in imported_modules(ast.parse(source)) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.relative_to(ROOT)} code cell {i} imports {bad}"

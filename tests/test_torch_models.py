@@ -8,6 +8,7 @@ small random model carried across by ``params_from_jax`` is held to rtol
 1e-10 in float64.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -18,7 +19,7 @@ import torch
 
 from quattro_tpu.models import GainPredictor as JGainPredictor
 from quattro_tpu.models.gain_predictor import _flatten_params
-from quattro_tpu_torch.models import GainPredictor, TransformerPredictor, params_from_jax
+from quattro_tpu_torch.models import DataNormalizer, GainPredictor, TransformerPredictor, params_from_jax
 
 CHECKPOINT = os.path.join(os.path.dirname(__file__), os.pardir, "checkpoints", "quadrotor_gain.npz")
 
@@ -111,3 +112,69 @@ def test_load_needs_a_device_without_cuda():
         pytest.skip("a card is present: the default device resolves to CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GainPredictor.load(CHECKPOINT)
+
+
+def walkthrough_predictors(**create):
+    """``tests/test_transformer.py``'s bf16 model (d_model 64, 4 heads, 2 layers, ff 128) in both packages,
+    the port's weights carried across by ``params_from_jax`` (float32, as the port keeps them)."""
+    hp = dict(state_dim=4, control_dim=5, prompt_len=5, target_len=25, d_model=64, nhead=4, num_decoder_layers=2,
+              dim_feedforward=128, max_seq_len=100)
+    jpred = JGainPredictor.create(**hp, **create)
+    jpred = dataclasses.replace(jpred, params=jax.tree.map(lambda p: p.astype(jnp.float32), jpred.params))
+    tpred = GainPredictor.from_flat(dict(hp, dropout=0.1), _flatten_params(jpred.params),
+                                    DataNormalizer.identity(4, 5, device="cpu"), device="cpu")
+    return jpred, tpred
+
+
+def test_bf16_predict_close_to_f32_and_to_jax():
+    """``predict_fn(compute_dtype=torch.bfloat16)``: float32 outputs within 0.05 of the float32 forward on the
+    scale max(|f32|, 1) (``tests/test_transformer.py``'s bar), against the port's and JAX's float32 forward and
+    against JAX's bfloat16 forward."""
+    jpred, tpred = walkthrough_predictors(seq_len_states=31)
+    x = np.random.default_rng(0).normal(size=(31, 4)).astype(np.float32) * np.float32(0.3)
+    kk = np.random.default_rng(1).normal(size=(5, 5)).astype(np.float32)
+    bf16 = tpred.predict_fn(compute_dtype=torch.bfloat16)(torch.from_numpy(x), torch.from_numpy(kk))
+    assert bf16.dtype == torch.float32 and bf16.shape == (25, 5)
+    f32 = tpred.predict_fn()(torch.from_numpy(x), torch.from_numpy(kk)).numpy()
+    for ref in (f32, np.asarray(jpred.predict_fn()(jnp.asarray(x), jnp.asarray(kk))),
+                np.asarray(jpred.predict_fn(compute_dtype=jnp.bfloat16)(jnp.asarray(x), jnp.asarray(kk)))):
+        assert np.max(np.abs(bf16.numpy() - ref) / np.maximum(np.abs(ref), 1.0)) < 0.05
+    batched = tpred.predict_fn(compute_dtype=torch.bfloat16)(torch.from_numpy(x)[None], torch.from_numpy(kk)[None])
+    assert torch.equal(batched[0], bf16)
+
+
+def test_host_predict_matches_jax():
+    """``GainPredictor.predict`` on numpy arrays against JAX's: float32 outputs within two float32 ulps of their
+    scale (float64 inputs, so both models run in float64 and round once)."""
+    jpred, tpred = walkthrough_predictors()
+    rng = np.random.default_rng(2)
+    x, kk = 0.3 * rng.standard_normal((31, 4)), rng.standard_normal((7, 5))
+    ref = jpred.predict(x, kk)
+    out = tpred.predict(x, kk)
+    assert isinstance(out, np.ndarray) and out.dtype == np.float32 and out.shape == ref.shape == (25, 5)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2 * float(np.finfo(np.float32).eps) * np.abs(ref).max())
+
+
+def test_create_accepts_seq_len_states():
+    """``seq_len_states`` sizes JAX's init input only: the same parameter shapes with and without it, and the
+    JAX model's count."""
+    jpred, _ = walkthrough_predictors(seq_len_states=31)
+    args = dict(state_dim=4, control_dim=5, prompt_len=5, target_len=25, d_model=64, nhead=4, num_decoder_layers=2,
+                dim_feedforward=128, max_seq_len=100, device="cpu")
+    with_len = GainPredictor.create(**args, seq_len_states=31)
+    plain = GainPredictor.create(**args)
+    assert {k: v.shape for k, v in with_len.module.state_dict().items()} == {
+        k: v.shape for k, v in plain.module.state_dict().items()}
+    assert with_len.num_params() == jpred.num_params()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_positional_encoding_dtype_matches_jax(dtype):
+    from quattro_tpu.models.transformer import sinusoidal_positional_encoding as j_table
+    from quattro_tpu_torch.models import sinusoidal_positional_encoding
+
+    ours = sinusoidal_positional_encoding(40, 17, dtype=getattr(torch, dtype))
+    theirs = j_table(40, 17, dtype=getattr(jnp, dtype))
+    assert ours.dtype == getattr(torch, dtype) and ours.shape == (40, 17)
+    np.testing.assert_array_equal(ours.float().numpy(), np.asarray(theirs).astype(np.float32))
+    assert sinusoidal_positional_encoding(4, 6).dtype == torch.float32  # JAX's default
