@@ -1,0 +1,14 @@
+"""Host time of the program's MPC step (ms/step), ``control/mpc.py``: ``mpc.step`` less its ``mpc.stats_read``.
+
+What the step's Python costs the host, with the wait for K3 taken out: the
+K2 initial rollout's and the cost's launches, K3's preparation and launch,
+the warm-start shift. A program span, on the host's clock, over the traced
+window.
+"""
+
+from bench_cuda import program_spans
+
+
+def read(ctx):
+    program = program_spans.load(ctx)
+    return program_spans.self_ms(program, "mpc.step", "mpc.stats_read") if program else None

@@ -34,6 +34,7 @@ from quattro_tpu_torch.solver.lqr import lqr_gain
 from quattro_tpu_torch.systems.cartpole import CartPoleField, CartPoleParams, cartpole_linearized
 from quattro_tpu_torch.systems.integrators import make_discrete
 from quattro_tpu_torch.systems.quadrotor import QuadrotorField, QuadrotorParams
+from quattro_tpu_torch.utils.timing import span
 
 
 class MPCState(NamedTuple):
@@ -156,26 +157,28 @@ def build_mpc(
     elif mode in ("ilqr", "hybrid"):
 
         def step(x: torch.Tensor, state: MPCState):
-            sol = solve_from(x, state.u_warm)
-            return sol.u_seq[0], sol.x_seq, MPCState(shift_warm_start(sol.u_seq))
+            with span("mpc.step"):
+                sol = solve_from(x, state.u_warm)
+                return sol.u_seq[0], sol.x_seq, MPCState(shift_warm_start(sol.u_seq))
 
     else:
         eps_low, eps_high = blend_epsilon
 
         def step(x: torch.Tensor, state: MPCState):
-            w = blending_weight(x - x_ref, eps_low, eps_high)
-            sol = solve_from(x, state.u_warm)
-            u_primary = sol.u_seq[0]
-            u_lqr = lqr_control(x)
-            # Reference cutoffs. The solve still runs in the w <= 0.05 branch
-            # (it keeps the warm start moving), but its control is discarded
-            # exactly as the reference discards iLQR there. No host read.
-            u = torch.where(
-                w <= 0.05,
-                u_lqr,
-                torch.where(w >= 0.95, u_primary, w * u_primary + (1.0 - w) * u_lqr),
-            )
-            return u, sol.x_seq, MPCState(shift_warm_start(sol.u_seq))
+            with span("mpc.step"):
+                w = blending_weight(x - x_ref, eps_low, eps_high)
+                sol = solve_from(x, state.u_warm)
+                u_primary = sol.u_seq[0]
+                u_lqr = lqr_control(x)
+                # Reference cutoffs. The solve still runs in the w <= 0.05 branch
+                # (it keeps the warm start moving), but its control is discarded
+                # exactly as the reference discards iLQR there. No host read.
+                u = torch.where(
+                    w <= 0.05,
+                    u_lqr,
+                    torch.where(w >= 0.95, u_primary, w * u_primary + (1.0 - w) * u_lqr),
+                )
+                return u, sol.x_seq, MPCState(shift_warm_start(sol.u_seq))
 
     return MPCController(horizon=horizon, control_dim=control_dim, device=device, step=step)
 

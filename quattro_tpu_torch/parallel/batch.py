@@ -3,8 +3,8 @@
 Counterpart of ``quattro_tpu/parallel/batch.py::batched_ilqr_solve``. Both
 backends are one masked loop over the batch, the loop that ``vmap`` of the
 JAX ``while_loop`` runs: one shared trip counter, lanes that are done keep
-their carry frozen, per-lane iteration counts, and one host read of
-``done.all()`` per trip. They differ in the backward pass:
+their carry frozen, per-lane iteration counts, and one host read per trip
+(the number of lanes still active). They differ in the backward pass:
 
 - ``"fused"`` / ``"fused_bf16"``: one batched backward-pass launch per trip
   (kernel K4, ``ops/fused_riccati.py``), the stage inputs streamed in
@@ -45,6 +45,7 @@ from quattro_tpu_torch.solver.ilqr import (
 )
 from quattro_tpu_torch.solver.riccati import auto_form, riccati_backward, riccati_backward_associative
 from quattro_tpu_torch.solver.rollout import line_search, line_search_batched_fused, simulate, trajectory_cost
+from quattro_tpu_torch.utils.timing import count, span
 
 BACKENDS = ("auto", "fused", "fused_bf16", "vmap")
 
@@ -117,9 +118,10 @@ def batched_ilqr_solve(
     Returns an ``ILQRSolution`` with a leading batch axis; ``iterations``
     (int32) and ``converged`` (bool) are (B,) tensors.
     """
-    config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
-    trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
-    return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip)
+    with span("batch.solve"):
+        config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
+        trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
+        return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip)
 
 
 def batched_ilqr_solve_with_logs(
@@ -255,25 +257,35 @@ def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: IL
     """
     batch, horizon, m = u_init_batch.shape
     n = x0_batch.shape[-1]
-    xs, cs = _initial_batch(dynamics, cost, final_cost, x0_batch, u_init_batch)
+    with span("batch.initial"):
+        xs, cs = _initial_batch(dynamics, cost, final_cost, x0_batch, u_init_batch)
     us = u_init_batch
     ks = u_init_batch.new_zeros((batch, horizon, m))
     big_ks = u_init_batch.new_zeros((batch, horizon, m, n))
     done = torch.zeros(batch, dtype=torch.bool, device=xs.device)
     iters = torch.zeros(batch, dtype=torch.int32, device=xs.device)
     t = 0
-    while t < config.max_iter and not bool(done.all()):  # the trip's one host read
-        active = ~done
-        found, alpha, new_x, new_u, new_cost, k, big_k, now_done = trip(xs, us, cs, active)
-        if logs is not None:
-            entry = (xs, new_u, cs, new_cost, k, big_k, alpha, found, active)
-            for buf, value in zip(logs, entry):
-                slot = buf[:, t]
-                slot.copy_(_keep_active(active, (value,), (slot,))[0])
-        xs, us, cs, ks, big_ks = _keep_active(active, (new_x, new_u, new_cost, k, big_k), (xs, us, cs, ks, big_ks))
-        done = done | now_done
-        iters = iters + active.to(iters.dtype)
-        t += 1
+    # Each trip ends on the loop's one host read, the lanes still active (the first before the first trip).
+    lanes = batch - int(done.sum()) if config.max_iter > 0 else 0
+    while lanes:
+        with span("batch.trip"):
+            count("batch.lanes_active", lanes)
+            active = ~done
+            found, alpha, new_x, new_u, new_cost, k, big_k, now_done = trip(xs, us, cs, active)
+            if logs is not None:
+                entry = (xs, new_u, cs, new_cost, k, big_k, alpha, found, active)
+                for buf, value in zip(logs, entry):
+                    slot = buf[:, t]
+                    slot.copy_(_keep_active(active, (value,), (slot,))[0])
+            xs, us, cs, ks, big_ks = _keep_active(active, (new_x, new_u, new_cost, k, big_k),
+                                                  (xs, us, cs, ks, big_ks))
+            done = done | now_done
+            iters = iters + active.to(iters.dtype)
+            t += 1
+            lanes = 0
+            if t < config.max_iter:
+                with span("batch.done_read"):
+                    lanes = batch - int(done.sum())
     return ILQRSolution(xs, us, cs, iters, done, ks, big_ks)
 
 
@@ -315,7 +327,8 @@ def _derivatives(dynamics, cost, final_cost, xs, us):
 
 def _exact_trip(dynamics, cost, final_cost, backward, search, x0, xs, us, cs, reg, alphas):
     """One full-horizon iLQR iteration of every lane: ``(found, alpha, new_x, new_u, new_cost, k, big_k)``."""
-    a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs, us)
+    with span("batch.derivatives", device=xs.device):
+        a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs, us)
     k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
     return (*search(x0, xs, us, k, big_k, cs, alphas), k, big_k)
 

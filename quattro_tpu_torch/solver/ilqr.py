@@ -36,6 +36,7 @@ from quattro_tpu_torch.solver.rollout import (
     simulate,
     trajectory_cost,
 )
+from quattro_tpu_torch.utils.timing import count, span
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -268,13 +269,18 @@ def ilqr_solve_fused(
             "ilqr_solve_fused runs every trip with the one reg it is given (the kernel "
             "carries no mu-schedule); adaptive_reg needs ilqr_solve"
         )
-    x_init = _initial_rollout(dynamics, x0, u_init)
-    cost_init = trajectory_cost(cost, final_cost, x_init, u_init)
-    x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_kernel(
-        dynamics, cost, final_cost, x_init, u_init, cost_init,
-        config.max_iter, config.tol, config.reg, tuple(config.alphas),
-    )
-    _, iterations, converged = stats[0].tolist()
+    with span("mpc.initial_rollout"):
+        x_init = _initial_rollout(dynamics, x0, u_init)
+        cost_init = trajectory_cost(cost, final_cost, x_init, u_init)
+    with span("mpc.k3_launch"):
+        x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_kernel(
+            dynamics, cost, final_cost, x_init, u_init, cost_init,
+            config.max_iter, config.tol, config.reg, tuple(config.alphas),
+        )
+    with span("mpc.stats_read"):
+        _, iterations, converged = stats[0].tolist()  # the solve's one host read
+    count("mpc.iterations", int(iterations))
+    count("mpc.trips", config.max_iter)  # K3 runs every trip, masked after convergence
     return ILQRSolution(x_seq, u_seq, stats[0, 0], int(iterations), converged > 0.5, k_seq, big_k_seq)
 
 
