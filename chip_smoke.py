@@ -48,19 +48,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    float64 and float32: K4 on its column-major, batch2d, auto and packed
    entry points against its plain form, lane by lane against K1 (bit for
    bit), and with a bfloat16 stage stream (against its plain form, and
-   within 5e-2 of float32); K5 (B=2048, tile_s=8) against its plain form on
-   the packed tensors, and K5 -> K4 (packed) against K4 on the unpacked
-   stages (bit for bit); K6 and K7 (A=6) against their plain form and lane
+   within 5e-2 of float32); K5 at every batch the main path hands it, each
+   at its default tile_s (B=256, 512, 1024, 2048 in float64 and float32, and
+   the benchmark cell's B=65,536 in float32), against its plain form on the
+   packed tensors, and K5 -> K4 (packed) against K4 on the unpacked stages
+   (bit for bit) and against the plain chain; K6 and K7 (A=6) against their plain form and lane
    by lane against K2 (bit for bit), timed in float32 at B=512 and 2048 (the
    call, and the device time queued behind a sleep kernel). K4 is timed on its
    natural, packed and bf16 inputs (its kernels-line entry carries all three,
    and the device time on contiguous natural stages: the natural call copies
-   the strided stages of vmap's Jacobians first), K5 in float32 and float64.
+   the strided stages of vmap's Jacobians first), K5 in float32 at each
+   width and in float64 at B=2048.
 9. ``batched_ilqr_solve`` at the suite's problem (x0 z in [0.2, 0.5], zero
    controls, 4 forced iterations): backends "fused" (PyTorch line search, and
    linesearch="fused" through K7), "fused_bf16" and "vmap", float32 at
-   B=512 and 2048 and float64 at B=512. One K4 launch per trip (and one K7
-   with linesearch="fused"); float64 "fused" equals "vmap" (iterations,
+   B=512 and 2048 and float64 at B=512. One K5 and one K4 launch per trip on
+   the K4 backends (and one K7 with linesearch="fused"); float64 "fused" equals "vmap" (iterations,
    flags, cost rtol 1e-9, u atol 1e-8); solves/s of a warm call each.
 10. One fully fused batched trip through public entry points, K5 -> K4
    (packed) -> ``line_search_batched2d`` (K6), held to the "fused" backend's
@@ -91,8 +94,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 13. The training path (``phase_train``): ``collect_gain_dataset`` on the
    quadrotor (RK4, H=50, the example collection's cost, ILQRConfig(tol=1e-3,
    max_iter=8, linesearch="fused")) from 1,024 LHS initial states over 10
-   MPC steps, device-resident with compact_iters=3, float32: one K4 and one
-   K7 launch per trip of the logged batched solve, rows kept/valid/dropped
+   MPC steps, device-resident with compact_iters=3, float32: one K5, one K4
+   and one K7 launch per trip of the logged batched solve, rows kept/valid/dropped
    and rows/s; the same collection at B=64 over 3 steps in float64 with the
    fused and "vmap" backends (equal valid masks and rows, x within 1e-8 and
    gain tokens within 1e-7); the shipped quadrotor predictor's width (616,244
@@ -106,7 +109,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 14. The mesh path (``phase_mesh``), on virtual meshes that name the one card once per shard: ``make_mesh()``
    (every visible card); ``sharded_ilqr_solve`` at phase 9's problem, B=2048 on an (8, 1) mesh, float32,
-   ``linesearch="fused"`` (K4 and K7 once per trip of each shard: 32 each), every lane held to
+   ``linesearch="fused"`` (K5, K4 and K7 once per trip of each shard: 32 each), every lane held to
    ``batched_ilqr_solve`` at B=2048, solves/s of both; float64 at B=512 on (4, 1) against the unsharded solve
    (iterations, flags, cost rtol 1e-8, u atol 1e-8); ``sharded_riccati_backward`` on the random LQ problem at
    H=1,024 on a (1, 8) mesh, tree and ring, float64 against the CPU run (1e-9) and K1 (the JAX test's
@@ -214,6 +217,11 @@ BF16_BAND = 5e-2
 F64_BATCH_COST_RTOL = 1e-9
 F64_BATCH_U_ATOL = 1e-8
 K5_TILE_S = 8  # K5's packed layout: full 8 x 128 tiles at B=2048, as on the TPU
+# The batches the main path hands K5, each at its default tile_s: phase 14's shards (tile_s 2), phase 9's (4, 8),
+# phase 13's collection (8), the benchmark's batch cell (8, 64 blocks). Float64 up to K5_F64_MAX; the cell's
+# width runs float32, its configuration's dtype.
+K5_BATCHES = (256, 512, 1024, 2048, 65536)
+K5_F64_MAX = 2048
 # MPC steps traced for the device idle share. They go on from the end of the
 # closed loop: warm-started steps, as all but the first few of a loop are. (A
 # cold first step of the while solver takes many iterations of tens of
@@ -727,27 +735,39 @@ def suite_batch(dtype, batch, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def warm_batch(dtype, batch):
-    """A warm-started batch of the suite's problem and its first backward pass's stage data.
+def warm_rollout(dtype, batch):
+    """A warm-started batch of the suite's problem, its rollout and its terminal expansion.
 
     x0 also gets small seeded velocities and attitudes and the controls hover
     plus noise, so that every trajectory's stages differ (at zero controls and
     level attitude all A_t are equal, which would hide a lane read from the
-    wrong trajectory). Returns (dyn, cost, xs, us, stages, v_x_final, v_xx_final).
+    wrong trajectory). Returns (dyn, cost, xs, us, v_x_final, v_xx_final).
     """
     from torch.func import vmap
 
-    from quattro_tpu_torch.solver import linearize_dynamics, quadratize_cost, quadratize_final_cost, simulate
+    from quattro_tpu_torch.solver import quadratize_final_cost, simulate
 
     dyn, cost, fcost, x0, u0 = suite_batch(dtype, batch)
     rng = np.random.default_rng(1)
     x0[:, 3:12] = torch.from_numpy(0.1 * rng.standard_normal((batch, 9))).to(x0)
     us = u0 + 2.4525 + torch.from_numpy(0.1 * rng.standard_normal(tuple(u0.shape))).to(u0)
     xs = vmap(functools.partial(simulate, dyn))(x0, us)
+    fin = vmap(functools.partial(quadratize_final_cost, fcost))(xs[:, -1])
+    return dyn, cost, xs, us, fin.v_x, fin.v_xx
+
+
+@functools.lru_cache(maxsize=None)
+def warm_batch(dtype, batch):
+    """``warm_rollout`` and its first backward pass's stage data: (dyn, cost, xs, us, stages, v_x_final,
+    v_xx_final)."""
+    from torch.func import vmap
+
+    from quattro_tpu_torch.solver import linearize_dynamics, quadratize_cost
+
+    dyn, cost, xs, us, v_x, v_xx = warm_rollout(dtype, batch)
     a, b = vmap(functools.partial(linearize_dynamics, dyn))(xs, us)
     exp = vmap(functools.partial(quadratize_cost, cost))(xs, us)
-    fin = vmap(functools.partial(quadratize_final_cost, fcost))(xs[:, -1])
-    return dyn, cost, xs, us, (a, b, exp), fin.v_x, fin.v_xx
+    return dyn, cost, xs, us, (a, b, exp), v_x, v_xx
 
 
 def stage_entries(n, m):
@@ -855,41 +875,70 @@ def phase_k4(report):
 
 
 def phase_k5(report):
-    """K5 against its plain form on the packed tensors, and K5 -> K4 against K4 on the unpacked stages."""
+    """K5 at every batch of ``K5_BATCHES`` with its default tile_s, as the main path calls it, against its plain
+    form; K5 -> K4 (packed) against K4 on the unpacked stages (bit for bit) and against the plain chain (the
+    plain K5's stages, unpacked, into K4's plain form). Returns K5's float32 time at each width."""
     from quattro_tpu_torch.ops import fused_riccati as fr
     from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused, linquad_batched_fused_plain
+    from quattro_tpu_torch.solver import CostExpansion
 
-    batch = BATCHES[-1]
-    for dtype in (torch.float64, torch.float32):
-        dyn, cost, xs, us, _, v_x, v_xx = warm_batch(dtype, batch)
-        out = linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S)
-        ref = linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=K5_TILE_S)
-        torch.cuda.synchronize()
-        bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
-        check(f"K5 B={batch} tile_s={K5_TILE_S} {dtype}", rel_errs(fr.STAGE_NAMES, out, ref), bound)
-        chain = fr.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, tile_s=K5_TILE_S,
-                                                    packed_stage=out, horizon=BATCH_H)
-        a, b, l_xx, l_uu, l_ux, l_x, l_u = (fr.unpack_stage(x, batch, BATCH_H, tail, K5_TILE_S)
-                                            for x, tail in zip(out, fr.stage_shapes(12, 4)))
-        direct = fr.riccati_backward_batched_fused(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x, v_xx, 1e-6)
-        if not all(torch.equal(c, d) for c, d in zip(chain, direct)):
-            raise AssertionError(f"K5 -> K4 (packed) differs from K4 on the unpacked stages ({dtype})")
-        log(f"K5 -> K4 B={batch} {dtype}: gains equal K4 on the unpacked stages bit for bit")
-        if dtype == torch.float64:
-            log(f"K5 float64 B={batch} H={BATCH_H}: kernel "
-                f"{time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S), 50):.4f} ms")
-        if dtype == torch.float32:
-            ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us, tile_s=K5_TILE_S), 50)
-            plain_ms = time_ms(lambda: linquad_batched_fused_plain(dyn, cost, xs, us, tile_s=K5_TILE_S), 1)
-            b_ms, b_by = bound_ms(k5_work(batch, BATCH_H, 12, 4, 80, dtype), dtype)
-            log(f"K5 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-                f"bound {b_ms:.2e} ms ({b_by})")
-            report[K5] = dict(
-                name=K5, route="cuda", source="quattro_tpu_torch/csrc/fused_linquad.cu",
-                replaces="quattro_tpu/ops/fused_linquad.py:61", launches=0,
-                max_abs_err=max(float((o - r).abs().max()) for o, r in zip(out, ref)),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            )
+    timing = {}
+    for batch in K5_BATCHES:
+        tile_s = fr.default_tile_s(batch)
+
+        def unpack(packed):
+            return [fr.unpack_stage(x, batch, BATCH_H, tail, tile_s) for x, tail in zip(packed, fr.stage_shapes(12, 4))]
+
+        for dtype in (torch.float64, torch.float32) if batch <= K5_F64_MAX else (torch.float32,):
+            label = f"B={batch} tile_s={tile_s} {dtype}"
+            bound = F64_KERNEL_REL if dtype == torch.float64 else F32_KERNEL_REL
+            dyn, cost, xs, us, v_x, v_xx = warm_rollout(dtype, batch)
+            torch.cuda.reset_peak_memory_stats()
+            out = linquad_batched_fused(dyn, cost, xs, us)
+            ref = linquad_batched_fused_plain(dyn, cost, xs, us)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            check(f"K5 {label}", rel_errs(fr.STAGE_NAMES, out, ref), bound)
+            chain = fr.riccati_backward_batched_fused2d(None, None, None, v_x, v_xx, 1e-6, packed_stage=out,
+                                                        horizon=BATCH_H)
+            a, b, l_xx, l_uu, l_ux, l_x, l_u = unpack(out)
+            direct = fr.riccati_backward_batched_fused(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x, v_xx, 1e-6)
+            if not all(torch.equal(c, d) for c, d in zip(chain, direct)):
+                raise AssertionError(f"K5 -> K4 (packed) {label} differs from K4 on the unpacked stages")
+            del a, b, l_xx, l_uu, l_ux, l_x, l_u, direct
+            a, b, l_xx, l_uu, l_ux, l_x, l_u = unpack(ref)
+            del ref
+            plain = fr.riccati_backward_batched_fused_plain(a, b, CostExpansion(l_x, l_u, l_xx, l_uu, l_ux), v_x,
+                                                            v_xx, 1e-6)
+            del a, b, l_xx, l_uu, l_ux, l_x, l_u
+            check(f"K5 -> K4 (packed) {label} against the plain chain", rel_errs(("k", "K"), chain, plain), bound)
+            log(f"K5 -> K4 {label}: gains equal K4 on the unpacked stages bit for bit; K5 and its plain form "
+                f"{peak / 1e9:.2f} GB peak")
+            if dtype == torch.float32:
+                ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us), 20)
+                b_ms, b_by = bound_ms(k5_work(batch, BATCH_H, 12, 4, 80, dtype), dtype)
+                timing[batch] = dict(ms=ms, bound_ms=b_ms, tile_s=tile_s)
+                log(f"K5 float32 B={batch} tile_s={tile_s} H={BATCH_H}: kernel {ms:.4f} ms, bound {b_ms:.2e} ms "
+                    f"({b_by})")
+            if batch == BATCHES[-1] and dtype == torch.float64:
+                log(f"K5 float64 B={batch} H={BATCH_H}: kernel "
+                    f"{time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us), 50):.4f} ms")
+            if batch == BATCHES[-1] and dtype == torch.float32:
+                ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us), 50)
+                plain_ms = time_ms(lambda: linquad_batched_fused_plain(dyn, cost, xs, us), 1)
+                out = linquad_batched_fused(dyn, cost, xs, us)
+                ref = linquad_batched_fused_plain(dyn, cost, xs, us)
+                log(f"K5 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+                    f"bound {b_ms:.2e} ms ({b_by})")
+                report[K5] = dict(
+                    name=K5, route="cuda", source="quattro_tpu_torch/csrc/fused_linquad.cu",
+                    replaces="quattro_tpu/ops/fused_linquad.py:61", launches=0,
+                    max_abs_err=max(float((o - r).abs().max()) for o, r in zip(out, ref)),
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                )
+            del out, chain, plain, xs, us
+            torch.cuda.empty_cache()
+    return timing
 
 
 def phase_k67(report):
@@ -1296,9 +1345,9 @@ def phase_batch(report):
 
     forced = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS)
     runs = (
-        ("fused", forced, "fused", (K4,)),
-        ("fused_ls", forced._replace(linesearch="fused"), "fused", (K4, K7)),
-        ("fused_bf16", forced, "fused_bf16", (K4,)),
+        ("fused", forced, "fused", (K5, K4)),  # the suite's batches fill K5's tiles: K5 takes the stages
+        ("fused_ls", forced._replace(linesearch="fused"), "fused", (K5, K4, K7)),
+        ("fused_bf16", forced, "fused_bf16", (K5, K4)),
         ("vmap", forced, "vmap", ()),
     )
     results = {}
@@ -1662,7 +1711,8 @@ def quadrotor_lhs_states(num, dtype, seed=0):
 
 
 def phase_train(report, pure_xs):
-    """The training path: logged collection (K4 and K7 every trip), the gain-predictor trainer, the new predictor's loop."""
+    """The training path: logged collection (K5, K4 and K7 every trip), the gain-predictor trainer, the new
+    predictor's loop."""
     from quattro_tpu_torch.control import make_quadrotor_mpc
     from quattro_tpu_torch.models import GainPredictor
     from quattro_tpu_torch.parallel import batched_ilqr_solve_with_logs
@@ -1685,14 +1735,15 @@ def phase_train(report, pure_xs):
                                     compact_iters=TRAIN_COMPACT, device_resident=True)
 
     start = time.perf_counter()
-    ds, counts = counted((K4, K7), report, collect)
+    ds, counts = counted((K5, K4, K7), report, collect)
     seconds = time.perf_counter() - start
     stats = ds.stats
     log(f"collection B={TRAIN_BATCH} H={TRAIN_H} {TRAIN_SIM_STEPS} steps float32: rows kept {stats.rows_kept}, "
         f"valid {stats.rows_valid}, dropped {stats.rows_dropped} ({stats.dropped_fraction:.4f}); {stats.trips} trips, "
         f"launches {counts}; {seconds:.3f} s, {stats.rows_kept / seconds:.1f} rows/s")
-    if counts != {K4: stats.trips, K7: stats.trips}:
-        raise AssertionError(f"collection: launches {counts}, expected one K4 and one K7 per trip ({stats.trips})")
+    if counts != {K5: stats.trips, K4: stats.trips, K7: stats.trips}:
+        raise AssertionError(f"collection: launches {counts}, expected one K5, one K4 and one K7 per trip "
+                             f"({stats.trips})")
     if not (len(ds) == stats.rows_kept > 0 and torch.isfinite(ds.x_flat).all() and torch.isfinite(ds.kk_flat).all()
             and ds.x_row_shape == (TRAIN_H + 1, 12) and ds.kk_row_shape == (TRAIN_H, 52)):
         raise AssertionError("collection: malformed rows")
@@ -1846,12 +1897,12 @@ def phase_mesh(report):
     log(f"mesh: make_mesh() {default.shape} over {[str(d) for d in default.devices.reshape(-1)]}; virtual meshes "
         f"name cuda:0 once per shard")
 
-    # The sharded batch solve, float32: K4 and K7 once per trip of each shard.
+    # The sharded batch solve, float32: K5, K4 and K7 once per trip of each shard (256 lanes fill K5's tiles).
     batch = BATCHES[-1]
     problem = suite_batch(torch.float32, batch)
     cfg = ILQRConfig(tol=0.0, max_iter=BATCH_ITERS, linesearch="fused")
     mesh = virtual((MESH_SHARDS, 1))
-    sharded, counts = counted((K4, K7), report, lambda: sharded_ilqr_solve(*problem, mesh, cfg))
+    sharded, counts = counted((K5, K4, K7), report, lambda: sharded_ilqr_solve(*problem, mesh, cfg))
     expected = MESH_SHARDS * BATCH_ITERS
     plain = batched_ilqr_solve(*problem, cfg)
     same = bool(torch.equal(sharded.iterations, plain.iterations) and torch.equal(sharded.converged, plain.converged))
@@ -1869,7 +1920,7 @@ def phase_mesh(report):
         f"against batched_ilqr_solve: iterations/flags equal {same}, max cost rel {cost_rel:.3e} (bound "
         f"{F32_SOLVE_COST_REL}), max |du| {u_abs:.3e} (bound {F32_SOLVE_U_ABS}), lanes bit for bit {bitwise:.4f}; "
         f"solves/s sharded {rates['sharded']:.1f}, unsharded {rates['unsharded']:.1f}")
-    if counts != {K4: expected, K7: expected} or not (same and cost_rel <= F32_SOLVE_COST_REL
+    if counts != {K5: expected, K4: expected, K7: expected} or not (same and cost_rel <= F32_SOLVE_COST_REL
                                                       and u_abs <= F32_SOLVE_U_ABS):
         raise AssertionError("sharded solve float32: launches or lanes differ from the unsharded solve")
     results["solve_f32"] = dict(launches=counts, cost_rel=cost_rel, u_abs=u_abs, bitwise_share=bitwise,
@@ -2121,6 +2172,7 @@ def hybrid_trip_split(problem, predict, window, config):
     """Host wall time (ms, synchronized, median of 3) of each part of one batched trip at the first trip's
     inputs, through the helpers the solves call (quattro_tpu_torch/parallel/batch.py): the hybrid trip's parts,
     and the pure trip's full-horizon derivatives and K4."""
+    from quattro_tpu_torch.ops.fused_riccati import riccati_backward_batched_fused_auto
     from quattro_tpu_torch.parallel import batch
 
     dyn, cost, fcost, x0, us, x_ref = problem
@@ -2129,7 +2181,6 @@ def hybrid_trip_split(problem, predict, window, config):
     alphas = batch._alphas(config, x0)
     search = batch._batched_line_search(dyn, cost, fcost, config)
     tail_backward = batch._tail_backward(config, x0, us)
-    _, full_backward = batch._select_backend(config, x0, us, "auto")
     xs, cs = batch._initial_batch(dyn, cost, fcost, x0, us)
     a, b, exp, fexp = batch._derivatives(dyn, cost, fcost, xs[:, head:], us[:, head:])
     fa, fb, fexp_full, ffin = batch._derivatives(dyn, cost, fcost, xs, us)
@@ -2151,7 +2202,8 @@ def hybrid_trip_split(problem, predict, window, config):
         "K7 line search": lambda: search(x0, xs, us, k, big_k, cs, alphas),
         "select": select,
         "pure: derivatives (full)": lambda: batch._derivatives(dyn, cost, fcost, xs, us),
-        "pure: K4 (full)": lambda: full_backward(fa, fb, fexp_full, ffin.v_x, ffin.v_xx, config.reg),
+        "pure: K4 (full)": lambda: riccati_backward_batched_fused_auto(fa, fb, fexp_full, ffin.v_x, ffin.v_xx,
+                                                                      config.reg),
     }
     return {name: wall_ms(fn, reps=3) for name, fn in parts.items()}
 
@@ -2339,7 +2391,7 @@ def main() -> int:
     k2_times = phase_k2(report)
     k3_times = phase_k3(report)
     phase_k4(report)
-    phase_k5(report)
+    k5_times = phase_k5(report)
     k67_times = phase_k67(report)
     phase_k9(report)
     phase_k8(report)
@@ -2354,7 +2406,7 @@ def main() -> int:
     examples = phase_examples(report, root, pure_xs)
     hybrid = phase_hybrid(report, root)
     log(json.dumps({"summary": {"card": smi, "k1_timing": k1_times, "k2_timing": k2_times, "k3_timing": k3_times,
-                                "k67_timing": k67_times, "bench_iters_per_s": rates,
+                                "k5_timing": k5_times, "k67_timing": k67_times, "bench_iters_per_s": rates,
                                 "mpc": mpc, "mpc_megakernel": mega, "batched": batched, "assoc": assoc,
                                 "train": train, "mesh": mesh, "examples": examples, "hybrid": hybrid,
                                 "wall_s": time.perf_counter() - _START}}))

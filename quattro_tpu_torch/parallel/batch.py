@@ -13,9 +13,17 @@ their carry frozen, per-lane iteration counts, and one host read per trip
   ``torch.func.vmap``, with a per-lane ``reg`` for ``adaptive_reg``; the
   associative form runs batched instead (two K8 launches per trip).
 
-The derivatives run under ``torch.func.vmap``; the line search is
-``vmap(line_search)`` or, with ``linesearch="fused"``, one batched rollout
-launch per trip (kernel K7, ``solver/rollout.py::line_search_batched_fused``).
+A trip's stage derivatives are one launch of kernel K5
+(``ops/fused_linquad.py``), whose packed stage tensors K4 reads in place, when
+the backward pass is K4 and K5 takes the problem: dynamics with device code
+(``make_discrete`` of a plant the kernels know), a running cost of
+``make_quadratic_cost``, float32 or float64 data, and a batch that is a
+multiple of ``default_tile_s(B) * 128`` (``_linquad_applies``, decided once a
+call). Otherwise, and always for the ``"vmap"`` backend and the hybrid solve,
+they run under ``torch.func.vmap``. The terminal expansion runs under
+``vmap`` on both routes. The line search is ``vmap(line_search)`` or, with
+``linesearch="fused"``, one batched rollout launch per trip (kernel K7,
+``solver/rollout.py::line_search_batched_fused``).
 
 ``batched_ilqr_solve_with_logs`` runs the same loop and also writes each
 trip's entry into per-lane log buffers (the training-data collection's solve).
@@ -37,7 +45,13 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_batched_fused_auto
+from quattro_tpu_torch.ops.fused_linquad import KERNEL as LINQUAD_KERNEL
+from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused
+from quattro_tpu_torch.ops.fused_riccati import (
+    LANE, MAX_M, MAX_N, default_tile_s, riccati_backward_batched_fused2d, riccati_backward_batched_fused_auto,
+)
+from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant
+from quattro_tpu_torch.ops.fused_solve import cost_tables
 from quattro_tpu_torch.parallel.mesh import GlobalArray, Mesh, assemble, shard
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
 from quattro_tpu_torch.solver.ilqr import (
@@ -101,6 +115,13 @@ def batched_ilqr_solve(
     summation orders differ, which can flip a near-tie accept on single lanes
     after a few iterations; both results are valid solves.
 
+    On the K4 backends a trip's running stage derivatives are one K5 launch
+    feeding K4 in the packed layout where K5 takes the problem (see the
+    module docstring; ``_linquad_applies``), else ``vmap`` derivatives in the
+    natural layout. The two routes are the same function: on CPU tensors the
+    K5 route is the ``vmap`` derivatives packed and unpacked, equal bit for
+    bit; on the card K5 differentiates analytically, in the data's dtype.
+
     A forced ``"fused"`` on CPU tensors runs the kernels' plain forms. With
     ``"vmap"``, lanes that would reach K1 (``riccati="fused"``, or ``"auto"``
     on the card for a batch of one) and lanes with ``linesearch="fused"``
@@ -119,8 +140,8 @@ def batched_ilqr_solve(
     (int32) and ``converged`` (bool) are (B,) tensors.
     """
     with span("batch.solve"):
-        config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
-        trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
+        config, gains = _select_backend(config, x0_batch, u_init_batch, riccati_backend, dynamics, cost, final_cost)
+        trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, gains)
         return _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip)
 
 
@@ -148,17 +169,47 @@ def batched_ilqr_solve_with_logs(
     ``logs``: zero-filled buffers of shape ``(B, max_iter, ...)`` to write
     into (views of a larger buffer work); ``None`` allocates them.
     """
-    config, backward = _select_backend(config, x0_batch, u_init_batch, riccati_backend)
+    config, gains = _select_backend(config, x0_batch, u_init_batch, riccati_backend, dynamics, cost, final_cost)
     if logs is None:
         batch, horizon, m = u_init_batch.shape
         logs = empty_logs((batch, config.max_iter), horizon, x0_batch.shape[-1], m, x0_batch.dtype, x0_batch.device)
-    trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, backward)
+    trip = _exact_trips(dynamics, cost, final_cost, x0_batch, config, gains)
     solution = _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config, trip, logs)
     return solution, logs
 
 
-def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor, riccati_backend: str):
-    """``(config, backward)`` for the masked loop: the backend's refusals and the dispatch of ``"auto"``."""
+def _linquad_applies(dynamics, cost, x0_batch: torch.Tensor, u_init_batch: torch.Tensor) -> bool:
+    """Whether K5 computes a trip's running stages: what ``linquad_batched_fused`` takes, probed without raising.
+
+    The dynamics have device code for their (n, m) (``device_plant``), the
+    running cost is ``make_quadratic_cost``'s with tables on the batch's
+    dtype and device (``cost_tables``), the data is float32 or float64 in one
+    dtype, and the batch is a multiple of ``default_tile_s(B) * 128``. Any
+    other callable, cost or batch reads False.
+    """
+    batch, n, m = x0_batch.shape[0], x0_batch.shape[-1], u_init_batch.shape[-1]
+    if (x0_batch.dtype not in DTYPES or u_init_batch.dtype != x0_batch.dtype
+            or u_init_batch.device != x0_batch.device or batch % (default_tile_s(batch) * LANE)):
+        return False
+    try:
+        device_plant(dynamics, LINQUAD_KERNEL, n, m)
+        cost_tables(LINQUAD_KERNEL, cost, None, n, m, x0_batch)
+    except (AttributeError, TypeError, ValueError):
+        return False
+    return True
+
+
+def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor, riccati_backend: str,
+                    dynamics, cost, final_cost, linquad: bool = True):
+    """``(config, gains)`` for the masked loop: the backend's refusals, the dispatch of ``"auto"`` and the trip's route.
+
+    ``gains(xs, us, reg) -> (k, K)`` is one full-horizon trip's derivatives
+    and backward pass, on the route chosen here once a call: K5 into packed
+    K4 (``_linquad_gains``) where the backward pass is K4, ``linquad`` is set
+    and ``_linquad_applies`` holds; else the ``vmap`` derivatives into the
+    backward pass's natural layout (``_natural_gains``). The batched hybrid
+    solve asks for ``linquad=False``.
+    """
     if riccati_backend not in BACKENDS:
         raise ValueError(f"Unknown riccati_backend: {riccati_backend!r}")
     n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
@@ -191,13 +242,53 @@ def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: to
         # One K4 launch per trip on CUDA.
         stream_dtype = torch.bfloat16 if riccati_backend == "fused_bf16" else None
 
+        if linquad and _linquad_applies(dynamics, cost, x0_batch, u_init_batch):
+            return config, _linquad_gains(dynamics, cost, final_cost, config.reg, stream_dtype, u_init_batch.shape[1])
+
         def fused(a, b, exp, v_x, v_xx, reg):
             return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg, stream_dtype=stream_dtype)
 
-        return config, fused
+        return config, _natural_gains(dynamics, cost, final_cost, fused)
     if config.parallel_riccati is None and config.riccati == "auto":
         config = config._replace(batch_hint=max(config.batch_hint, x0_batch.shape[0]))
-    return config, _lane_backward(config, x0_batch, u_init_batch)
+    return config, _natural_gains(dynamics, cost, final_cost, _lane_backward(config, x0_batch, u_init_batch))
+
+
+def _natural_gains(dynamics, cost, final_cost, backward):
+    """A trip's gains from ``_derivatives`` under ``vmap`` and ``backward`` on their natural layout.
+
+    Span ``batch.derivatives`` holds the derivatives; counter
+    ``batch.linquad_trips`` adds 0 (a trip off the K5 route).
+    """
+
+    def gains(xs, us, reg):
+        count("batch.linquad_trips", 0)
+        with span("batch.derivatives", device=xs.device):
+            a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs, us)
+        return backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
+
+    return gains
+
+
+def _linquad_gains(dynamics, cost, final_cost, reg: float, stream_dtype, horizon: int):
+    """A trip's gains from one K5 launch and K4 reading its packed stage tensors in place.
+
+    K5 (``linquad_batched_fused``; its plain form on CPU tensors) writes the
+    running stages; the terminal expansion runs under ``vmap``
+    (``_final_derivatives``). Span ``batch.derivatives`` holds both; counter
+    ``batch.linquad_trips`` adds 1. K4 runs at the static ``reg``, as on the
+    natural route.
+    """
+
+    def gains(xs, us, _reg):
+        count("batch.linquad_trips", 1)
+        with span("batch.derivatives", device=xs.device):
+            stages = linquad_batched_fused(dynamics, cost, xs, us)
+            fexp = _final_derivatives(final_cost, xs)
+        return riccati_backward_batched_fused2d(None, None, None, fexp.v_x, fexp.v_xx, reg, stream_dtype=stream_dtype,
+                                                packed_stage=stages, horizon=horizon)
+
+    return gains
 
 
 def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
@@ -317,23 +408,35 @@ def _batched_line_search(dynamics, cost, final_cost, config: ILQRConfig):
     return vmap(lane, in_dims=(0, 0, 0, 0, 0, 0, None))
 
 
+def _final_derivatives(final_cost, xs):
+    """Every lane's final cost expansion at ``xs[:, -1]``, under ``torch.func.vmap``."""
+    return vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
+
+
 def _derivatives(dynamics, cost, final_cost, xs, us):
-    """Every lane's stage Jacobians and cost expansion, and the final cost's at ``xs[:, -1]``."""
+    """Every lane's stage Jacobians and cost expansion, and the final cost's, all under ``torch.func.vmap``.
+
+    The hybrid trip's tail window and any exact trip off the K5 route take
+    this path (``_natural_gains``).
+    """
     a, b = vmap(partial(linearize_dynamics, dynamics))(xs, us)
     exp = vmap(partial(quadratize_cost, cost))(xs, us)
-    fexp = vmap(partial(quadratize_final_cost, final_cost))(xs[:, -1])
-    return a, b, exp, fexp
+    return a, b, exp, _final_derivatives(final_cost, xs)
 
 
-def _exact_trip(dynamics, cost, final_cost, backward, search, x0, xs, us, cs, reg, alphas):
-    """One full-horizon iLQR iteration of every lane: ``(found, alpha, new_x, new_u, new_cost, k, big_k)``."""
-    with span("batch.derivatives", device=xs.device):
-        a, b, exp, fexp = _derivatives(dynamics, cost, final_cost, xs, us)
-    k, big_k = backward(a, b, exp, fexp.v_x, fexp.v_xx, reg)
+def _exact_trip(gains, search, x0, xs, us, cs, reg, alphas):
+    """One full-horizon iLQR iteration of every lane: ``(found, alpha, new_x, new_u, new_cost, k, big_k)``.
+
+    ``gains`` is ``_select_backend``'s route: on the K5 route the running
+    stage derivatives are one K5 launch that K4 reads packed, else they are
+    ``_derivatives`` under ``vmap`` and the backward pass reads the natural
+    layout.
+    """
+    k, big_k = gains(xs, us, reg)
     return (*search(x0, xs, us, k, big_k, cs, alphas), k, big_k)
 
 
-def _exact_trips(dynamics, cost, final_cost, x0_batch, config: ILQRConfig, backward):
+def _exact_trips(dynamics, cost, final_cost, x0_batch, config: ILQRConfig, gains):
     """``_masked_solve``'s trip for ``vmap(ilqr_solve)``: the full-horizon iteration and its stopping rule.
 
     Under ``adaptive_reg`` the trip carries JAX's per-lane reg: the LM
@@ -348,7 +451,7 @@ def _exact_trips(dynamics, cost, final_cost, x0_batch, config: ILQRConfig, backw
     def trip(xs, us, cs, active):
         nonlocal reg
         found, alpha, new_x, new_u, new_cost, k, big_k = _exact_trip(
-            dynamics, cost, final_cost, backward, search, x0_batch, xs, us, cs, reg, alphas)
+            gains, search, x0_batch, xs, us, cs, reg, alphas)
         small = (cs - new_cost).abs() < config.tol
         if config.adaptive_reg:
             reg_next = torch.where(found, torch.clamp(reg / config.reg_factor, min=config.reg),
@@ -449,8 +552,10 @@ def _hybrid_trips(dynamics, cost, final_cost, predict_fn, window, x0_batch, u_in
     head = u_init_batch.shape[1] - window
     if state_offset is None:
         state_offset = torch.zeros_like(x0_batch[0])
-    # Every iteration of a hybrid solve runs at config.reg: no mu-schedule for the exact one either.
-    _, exact_backward = _select_backend(config._replace(adaptive_reg=False), x0_batch, u_init_batch, riccati_backend)
+    # Every iteration of a hybrid solve runs at config.reg: no mu-schedule for the exact one either. The gathered
+    # exact lanes keep the natural layout (they rarely fill K5's tiles).
+    _, exact_gains = _select_backend(config._replace(adaptive_reg=False), x0_batch, u_init_batch, riccati_backend,
+                                     dynamics, cost, final_cost, linquad=False)
     tail_backward = _tail_backward(config, x0_batch, u_init_batch)
     search, alphas = _batched_line_search(dynamics, cost, final_cost, config), _alphas(config, x0_batch)
 
@@ -464,8 +569,8 @@ def _hybrid_trips(dynamics, cost, final_cost, predict_fn, window, x0_batch, u_in
             lanes = torch.nonzero(active & now_done).squeeze(1)  # host read: the lanes to redo exactly
             now_done = torch.zeros_like(now_done)
             if lanes.numel():
-                exact = _exact_trip(dynamics, cost, final_cost, exact_backward, search, x0_batch[lanes], xs[lanes],
-                                    us[lanes], cs[lanes], config.reg, alphas)
+                exact = _exact_trip(exact_gains, search, x0_batch[lanes], xs[lanes], us[lanes], cs[lanes],
+                                    config.reg, alphas)
                 found, alpha, new_x, new_u, new_cost, k, big_k = (
                     _put_lanes(h, lanes, e) for h, e in zip((found, alpha, new_x, new_u, new_cost, k, big_k), exact))
                 now_done[lanes] = ~exact[0] | ((cs[lanes] - exact[4]).abs() < config.tol)

@@ -15,6 +15,7 @@ max |plain| per tensor, float64 <= 1e-10 (K3 1e-9), float32 <= 1e-4.
 """
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,11 +23,13 @@ import torch
 
 from quattro_tpu_torch.control import make_quadrotor_mpc
 from quattro_tpu_torch.ops import _build, blocktridiag, fused_linquad, fused_riccati, fused_rollout, fused_solve, smallchol
-from quattro_tpu_torch.parallel import batched_ilqr_solve
+from quattro_tpu_torch.parallel import batch as batch_module
+from quattro_tpu_torch.parallel import batched_ilqr_solve, batched_ilqr_solve_with_logs
 from quattro_tpu_torch.solver import (
     CostExpansion, ILQRConfig, ilqr_solve, riccati_backward_associative, ilqr_solve_fused, line_search_batched2d, line_search_batched_fused,
     make_quadratic_cost, make_quadratic_final_cost, simulate, trajectory_cost,
 )
+from quattro_tpu_torch.solver.derivatives import quadratize_final_cost
 from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete, quadrotor_dynamics
 
 RTOL = 1e-9
@@ -721,6 +724,71 @@ def test_batched_solve_launches_k4_and_k7_once_per_trip(cuda_device, linesearch)
     assert torch.equal(fused.iterations, ref.iterations) and torch.equal(fused.converged, ref.converged)
     np.testing.assert_allclose(fused.cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-9)
     np.testing.assert_allclose(fused.u_seq.cpu().numpy(), ref.u_seq.cpu().numpy(), atol=1e-8)
+
+
+def bench_quad_batch(device, batch, dtype, horizon=50, seed=16):
+    """The batch cell's quadrotor problem: starts drawn in the collection's envelope (x, y, z, roll, pitch, yaw),
+    at rest; every rotor at hover thrust on every step."""
+    rng = np.random.default_rng(seed)
+    t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+    lower, upper = np.array([-0.3, -0.3, 0.49, -0.2, -0.2, -0.5]), np.array([0.3, 0.3, 0.51, 0.2, 0.2, 0.5])
+    x0 = np.zeros((batch, 12))
+    x0[:, [0, 1, 2, 6, 7, 8]] = lower + (upper - lower) * rng.random((batch, 6))
+    x_ref = t([0.0, 0.0, 0.5] + [0.0] * 9)
+    return (make_discrete(QuadrotorField(), 0.01, "rk4"),
+            make_quadratic_cost(t(Q), t([0.01] * 4), x_ref, barrier_alpha=1000.0),
+            make_quadratic_final_cost(t(10.0 * np.asarray(Q)), x_ref), t(x0), t(np.full((batch, horizon, 4), 2.4525)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_route_solve_matches_the_vmap_route(cuda_device, monkeypatch, dtype):
+    """The batch cell's solve at B = 2,048, H = 50: one K5, one packed K4 and one K7 per trip, against the same
+    solve on ``vmap`` derivatives and natural K4. float64: equal iterations, flags and accepts (step sizes, every
+    trip), u within 1e-10; float32: cost within 1e-4 relative, iterations equal on at least 99 % of lanes."""
+    prob = bench_quad_batch(cuda_device, 2048, dtype)
+    cfg = ILQRConfig(tol=1e-3, max_iter=8, linesearch="fused")
+    _build.reset_launches()
+    got, got_logs = batched_ilqr_solve_with_logs(*prob, cfg, riccati_backend="fused")
+    torch.cuda.synchronize()
+    trips = int(got.iterations.max())
+    assert trips >= 2 and dict(_build.launches) == {
+        fused_linquad.KERNEL: trips, fused_riccati.BATCHED_KERNEL: trips, fused_rollout.BATCHED_KERNEL: trips}
+    monkeypatch.setattr(batch_module, "_linquad_applies", lambda *args: False)
+    _build.reset_launches()
+    ref, ref_logs = batched_ilqr_solve_with_logs(*prob, cfg, riccati_backend="fused")
+    torch.cuda.synchronize()
+    assert fused_linquad.KERNEL not in _build.launches
+    if dtype == torch.float64:
+        assert torch.equal(got.iterations, ref.iterations) and torch.equal(got.converged, ref.converged)
+        assert torch.equal(got_logs.found_update, ref_logs.found_update) and torch.equal(got_logs.alpha, ref_logs.alpha)
+        assert float((got.u_seq - ref.u_seq).abs().max()) <= 1e-10
+    else:
+        assert float(((got.cost - ref.cost).abs() / ref.cost.abs()).max()) <= 1e-4
+        assert float((got.iterations == ref.iterations).double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_k5_to_k4_trip_at_the_cell_width(cuda_device):
+    """One trip's K5 -> packed K4 at the batch cell's width (B = 65,536, H = 50, float32, the warm start's rollout)
+    against its plain chain (the ``vmap`` derivatives packed, plain K4 on them unpacked): each packed stage tensor
+    and the gains within 1e-4 normwise."""
+    dyn, cost, fcost, x0, us = bench_quad_batch(cuda_device, 65536, torch.float32)
+    xs = torch.func.vmap(partial(simulate, dyn))(x0, us)
+    packed = fused_linquad.linquad_batched_fused(dyn, cost, xs, us)
+    plain = fused_linquad.linquad_batched_fused_plain(dyn, cost, xs, us)
+    assert all(normwise(o, r) <= NORMWISE[torch.float32] for o, r in zip(packed, plain))
+    fexp = torch.func.vmap(partial(quadratize_final_cost, fcost))(xs[:, -1])
+    chain = fused_riccati.riccati_backward_batched_fused2d(None, None, None, fexp.v_x, fexp.v_xx, 1e-6,
+                                                           packed_stage=packed, horizon=50)
+    del packed
+    tile_s = fused_riccati.default_tile_s(65536)
+    a, b_mat, l_xx, l_uu, l_ux, l_x, l_u = (fused_riccati.unpack_stage(x, 65536, 50, tail, tile_s)
+                                            for x, tail in zip(plain, fused_riccati.stage_shapes(12, 4)))
+    ref = fused_riccati.riccati_backward_batched_fused_plain(a, b_mat, CostExpansion(l_x, l_u, l_xx, l_uu, l_ux),
+                                                             fexp.v_x, fexp.v_xx, 1e-6)
+    torch.cuda.synchronize()
+    assert all(normwise(c, r) <= NORMWISE[torch.float32] for c, r in zip(chain, ref))
 
 
 @pytest.mark.cuda
