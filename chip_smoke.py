@@ -12,8 +12,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    problem): the call, and the device time queued behind a sleep kernel, per
    step beside the byte bound per step.
 3. K2 (fused all-alpha rollouts) against its plain form, quadrotor RK4,
-   H=100, A=6, and cart-pole RK4, H=30, float64 and float32; and as the
-   megakernel path uses it, the initial rollout of a warm start (one
+   H=100, A=6, and cart-pole RK4, H=30, float64 and float32; and as
+   ``_initial_rollout`` uses it, the initial rollout of a warm start (one
    candidate, zero gains; quadrotor H=50, cart-pole H=30) against ``simulate``.
    Timed in float32 at H=50, 100 and 1,024: the call, and the device time
    queued behind a sleep kernel, per step beside the bound per step.
@@ -34,12 +34,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    H=50 (the MPC shape) and H=100 (the bench problem), cart-pole at H=30;
    float64 and float32; forced trips (tol=0) and a run that converges before
    its last trip; ``iters`` and ``converged`` equal, x, u, k, K and cost
-   within the bounds below. Forced runs are timed: the call, and the device
-   time of the bare C entry point queued behind a sleep kernel, per time step
-   per trip.
+   within the bounds below; on both entries, given the initial rollout and
+   its cost, and given x0 (the megakernel path's, which rolls out and costs
+   inside the launch). Forced runs are timed: the call, and the device time
+   of the bare C entry point queued behind a sleep kernel, per time step per
+   trip.
 7. The megakernel MPC path at full width: ``make_quadrotor_mpc(horizon=50,
    solver="megakernel", max_iter=6)``, 300 closed-loop steps, the same error
-   bar, exactly one K3 launch per step, step latency and device idle share;
+   bar, exactly one K3 launch per step (it rolls out the warm start: no K2),
+   step latency and device idle share;
    the same step with ``simulate`` as the initial rollout, for its latency.
    Then ``make_cartpole_mpc`` from [0.15, 0, 0.2, 0] with
    ``solver="megakernel"`` and in mode ``"blend"`` (K1, K2 and the LQR gain).
@@ -576,8 +579,9 @@ def phase_k2(report):
         if not all(np.isfinite(v) and v <= bound for v in errs.values()):
             raise AssertionError(f"K2 disagrees with its plain form on the cart-pole in {dtype}: {errs}")
 
-        # The shape the megakernel path launches K2 at: the solve's initial
-        # rollout (one candidate, zero gains) of a warm start, against simulate.
+        # K2 as ``_initial_rollout`` launches it: the initial rollout (one
+        # candidate, zero gains) of a warm start, against simulate. K3's x0
+        # entry rolls out with the same step (phase 6).
         gen = torch.Generator().manual_seed(0)
         for label, problem, hover in (("quadrotor H=50", lambda dt: bench_problem(dt, 50), 2.4525),
                                       ("cart-pole H=30", cartpole_problem, 0.0)):
@@ -592,7 +596,7 @@ def phase_k2(report):
 
 def hover_stages(dtype, horizon):
     """K2's inputs at any horizon without an eager loop over it: the bench problem from hover controls, its
-    open-loop trajectory by one K2 launch (the megakernel path's initial rollout) and its first backward pass
+    open-loop trajectory by one K2 launch (``_initial_rollout``) and its first backward pass
     by one K1 launch, both in float64 and then cast (in float32 that pass overflows over 1,024 steps)."""
     from quattro_tpu_torch.solver import (
         RiccatiResult, linearize_dynamics, quadratize_cost, quadratize_final_cost, riccati_backward_fused,
@@ -653,8 +657,9 @@ def k3_work(horizon, n, m, n_alpha, trips, field_flops, dtype):
 
 
 def phase_k3(report):
-    """K3 against its plain form at the shapes the entry points give it."""
-    from quattro_tpu_torch.ops.fused_solve import _prepare, fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain
+    """K3 against its plain form at the shapes the entry points give it: given x_init and its cost, and given x0."""
+    from quattro_tpu_torch.ops.fused_solve import (_prepare, fused_ilqr_solve_from_x0, fused_ilqr_solve_from_x0_plain,
+                                                   fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain)
     from quattro_tpu_torch.solver import simulate, trajectory_cost
 
     k3_timing = {}
@@ -675,39 +680,53 @@ def phase_k3(report):
             cost_init = trajectory_cost(cost, fcost, x_init, u0)
             for kind, (tol, trips) in (("forced", (0.0, forced[dtype])), ("converging", converging)):
                 args = (dyn, cost, fcost, x_init, u0, cost_init, trips, tol, 1e-6, ALPHAS)
-                out = fused_ilqr_solve_kernel(*args)
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                ref = fused_ilqr_solve_kernel_plain(*args)
-                torch.cuda.synchronize()
-                plain_ms = 1e3 * (time.perf_counter() - start)
-                x, u, k, big_k, stats = out
-                rx, ru, rk, rbig_k, rstats = ref
-                u_scale = max(float(ru.abs().max()), float(rk.abs().max()), 1e-30)
-                errs = dict(x=rel_err(x, rx), u=rel_err(u, ru), K=rel_err(big_k, rbig_k),
-                            k=float((k - rk).abs().max()) / u_scale)
-                cost_rel = abs(float(stats[0, 0]) - float(rstats[0, 0])) / abs(float(rstats[0, 0]))
-                bound, cost_bound = (F64_K3_REL, F64_K3_REL) if dtype == torch.float64 else (F32_K3_REL, F32_K3_COST_REL)
-                flags, rflags = stats[0, 1:].tolist(), rstats[0, 1:].tolist()
-                log(f"K3 {label} {dtype} {kind} (tol {tol}, {trips} trips): iters/converged {flags} plain {rflags}; "
-                    f"rel err {errs} (bound {bound}), cost rel {cost_rel:.3e} (bound {cost_bound}); plain {plain_ms:.1f} ms")
-                if flags != rflags:
-                    raise AssertionError(f"K3 {label} {dtype} {kind}: iters/converged {flags}, plain form {rflags}")
-                if kind == "forced" and flags != [float(trips), 0.0]:
-                    raise AssertionError(f"K3 {label} {dtype}: the forced run did not take its {trips} trips: {flags}")
-                if kind == "converging" and not (flags[1] == 1.0 and flags[0] < trips):
-                    raise AssertionError(f"K3 {label} {dtype}: the converging run did not converge early: {flags}")
-                if not all(np.isfinite(v) and v <= bound for v in errs.values()) or not cost_rel <= cost_bound:
-                    raise AssertionError(f"K3 disagrees with its plain form ({label}, {dtype}, {kind}): {errs}, cost {cost_rel}")
-                if kind == "forced":
-                    ms = time_ms(lambda: fused_ilqr_solve_kernel(*args), 50)
-                    b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype), dtype)
+                args_x0 = (dyn, cost, fcost, x0, u0, trips, tol, 1e-6, ALPHAS)
+                for entry, kernel, plain, entry_args in (
+                    ("x_init", fused_ilqr_solve_kernel, fused_ilqr_solve_kernel_plain, args),
+                    ("x0", fused_ilqr_solve_from_x0, fused_ilqr_solve_from_x0_plain, args_x0),
+                ):
+                    out = kernel(*entry_args)
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    ref = plain(*entry_args)
+                    torch.cuda.synchronize()
+                    plain_ms = 1e3 * (time.perf_counter() - start)
+                    x, u, k, big_k, stats = out
+                    rx, ru, rk, rbig_k, rstats = ref
+                    u_scale = max(float(ru.abs().max()), float(rk.abs().max()), 1e-30)
+                    errs = dict(x=rel_err(x, rx), u=rel_err(u, ru), K=rel_err(big_k, rbig_k),
+                                k=float((k - rk).abs().max()) / u_scale)
+                    cost_rel = abs(float(stats[0, 0]) - float(rstats[0, 0])) / abs(float(rstats[0, 0]))
+                    bound, cost_bound = (F64_K3_REL, F64_K3_REL) if dtype == torch.float64 else (F32_K3_REL, F32_K3_COST_REL)
+                    flags, rflags = stats[0, 1:].tolist(), rstats[0, 1:].tolist()
+                    what = f"K3 ({entry}) {label} {dtype} {kind}"
+                    log(f"{what} (tol {tol}, {trips} trips): iters/converged {flags} plain {rflags}; "
+                        f"rel err {errs} (bound {bound}), cost rel {cost_rel:.3e} (bound {cost_bound}); plain {plain_ms:.1f} ms")
+                    if flags != rflags:
+                        raise AssertionError(f"{what}: iters/converged {flags}, plain form {rflags}")
+                    if kind == "forced" and flags != [float(trips), 0.0]:
+                        raise AssertionError(f"{what}: the forced run did not take its {trips} trips: {flags}")
+                    if kind == "converging" and not (flags[1] == 1.0 and flags[0] < trips):
+                        raise AssertionError(f"{what}: the converging run did not converge early: {flags}")
+                    if not all(np.isfinite(v) and v <= bound for v in errs.values()) or not cost_rel <= cost_bound:
+                        raise AssertionError(f"{what} disagrees with its plain form: {errs}, cost {cost_rel}")
+                    if kind != "forced":
+                        continue
+                    ms = time_ms(lambda: kernel(*entry_args), 50)
                     # The public call copies the step sizes to the card (a stream sync), so the device time is
                     # taken on the bare C entry point with prepared pointers, queued behind a sleep kernel.
-                    fn, bare_args, _, _tensors = _prepare(*args)  # _tensors keeps the pointed-to tensors alive
+                    prepared = args if entry == "x_init" else (dyn, cost, fcost, x0, u0, None, trips, tol, 1e-6, ALPHAS)
+                    fn, bare_args, _, _tensors = _prepare(*prepared)  # _tensors keeps the pointed-to tensors alive
                     stream = torch.cuda.current_stream().cuda_stream
                     dev_ms, queued = queued_ms(lambda: fn(*bare_args, stream), 20)
                     per_step = 1e3 * dev_ms / (trips * horizon)
+                    if entry == "x0":
+                        log(f"{what}, {trips} trips: call {ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]} "
+                            f"(the initial rollout and its cost inside)")
+                        if dtype == torch.float32 and label.startswith("quadrotor"):
+                            k3_timing[horizon].update(from_x0_call_ms=ms, from_x0_queued_ms=dev_ms)
+                        continue
+                    b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype), dtype)
                     log(f"K3 {label} {dtype}, {trips} trips: call {ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]} "
                         f"({per_step:.3f} us per time step per trip), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
                     if dtype == torch.float32 and label.startswith("quadrotor"):
@@ -1596,15 +1615,15 @@ def phase_megakernel(report):
     def run(n_steps=MPC_STEPS):
         return closed_loop(ctrl.step, ctrl.init_state(), plant, quadrotor_start(dev), n_steps)
 
-    (x, x_plan, lat, state, _), counts = counted((K2, K3), report, run)
+    (x, x_plan, lat, state, _), counts = counted((K3,), report, run)
     idle = idle_share(lambda: closed_loop(ctrl.step, state, plant, x, IDLE_STEPS))
     err = float((x - x_ref).norm())
     median_ms, p99_ms = latency(lat)
     log(f"MPC megakernel (quadrotor H=50, 6 trips): {MPC_STEPS} steps, ||x - x_ref|| = {err:.3e}, step latency "
         f"median {median_ms:.3f} ms p99 {p99_ms:.3f} ms, launches {counts}, device idle share over the next "
         f"{IDLE_STEPS} steps (profiled) {idle}")
-    if counts.get(K3) != MPC_STEPS or counts.get(K1, 0) != 0:
-        raise AssertionError(f"MPC megakernel: expected exactly one K3 launch per step and no K1, got {counts}")
+    if counts.get(K3) != MPC_STEPS or counts.get(K1, 0) != 0 or counts.get(K2, 0) != 0:
+        raise AssertionError(f"MPC megakernel: expected exactly one K3 launch per step, no K1 and no K2, got {counts}")
     if not (torch.isfinite(x_plan).all() and x_plan.shape == (51, 12)):
         raise AssertionError("MPC megakernel: malformed plan")
     if not err < MPC_ERROR_BAR:
@@ -1630,14 +1649,14 @@ def phase_megakernel(report):
     drift = float((x_sim - x_k2).abs().max())
     sim_median, sim_p99 = latency(lat_sim)
     log(f"MPC megakernel with simulate as the initial rollout: {SIMULATE_STEPS} steps, step latency median "
-        f"{sim_median:.3f} ms p99 {sim_p99:.3f} ms; max |x - x(K2 initial rollout)| after them {drift:.3e}")
+        f"{sim_median:.3f} ms p99 {sim_p99:.3f} ms; max |x - x(K3's initial rollout)| after them {drift:.3e}")
     if not drift < 1e-5:
         raise AssertionError(f"the two initial rollouts lead to different closed loops: {drift}")
     results["quadrotor_simulate"] = dict(median_ms=sim_median, p99_ms=sim_p99)
 
     cart_plant = make_discrete(CartPoleField(), 0.01, "rk4")
     for label, kwargs, kernels, bar in (
-        ("megakernel", dict(solver="megakernel", max_iter=6), (K2, K3), CARTPOLE_MEGAKERNEL_BAR),
+        ("megakernel", dict(solver="megakernel", max_iter=6), (K3,), CARTPOLE_MEGAKERNEL_BAR),
         ("blend", dict(mode="blend"), (K1, K2), CARTPOLE_BLEND_BAR),
     ):
         cart = make_cartpole_mpc(**kwargs)
@@ -1648,8 +1667,8 @@ def phase_megakernel(report):
         median_ms, p99_ms = latency(lat)
         log(f"MPC cart-pole {label} (H=30): {MPC_STEPS} steps, ||x|| = {err:.3e} (bar {bar}), step latency median "
             f"{median_ms:.3f} ms p99 {p99_ms:.3f} ms, launches {counts}")
-        if label == "megakernel" and counts.get(K3) != MPC_STEPS:
-            raise AssertionError(f"cart-pole megakernel: expected one K3 launch per step, got {counts}")
+        if label == "megakernel" and (counts.get(K3) != MPC_STEPS or counts.get(K2, 0) != 0):
+            raise AssertionError(f"cart-pole megakernel: expected one K3 launch per step and no K2, got {counts}")
         if not (torch.isfinite(x_plan).all() and x_plan.shape == (31, 4)):
             raise AssertionError(f"MPC cart-pole {label}: malformed plan")
         if not err < bar:

@@ -50,10 +50,19 @@
 // launch are not declared const __restrict__, so no read goes through the
 // non-coherent path. FP32 or FP64 FMAs only, no fast-math.
 //
+// A launch given x0 in place of x_init and cost_init starts with a prologue:
+// warp 0 rolls u_init out from x0 with K2's lane-group step (rollout_group.cuh;
+// at zero gains and alpha 1 K2's candidate is this rollout, so the trajectory
+// equals K2's), then every step's running cost on all threads, summed by one
+// thread in time order with the final cost last, as phase 3b sums each alpha's.
+// It takes the host's initial rollout and cost, and their launches, off the
+// MPC step; the trips that follow are the same code either way.
+//
 // C interface (no PyTorch header; bound with ctypes); contiguous device
 // arrays of the given dtype, n and m the plant's:
 //   x_init (H+1,n), u_init (H,m), cost_init (1), q (n,n), r (m,m), x_ref (n),
-//   qf (n,n), xf_ref (n), alphas (A)
+//   qf (n,n), xf_ref (n), alphas (A), x0 (n): either x_init and cost_init with
+//   x0 null, or x0 with x_init and cost_init null
 //   -> x (H+1,n), u (H,m), k (H,m), big_k (H,m,n), stats (3);
 //   workspace of qt_fused_solve_workspace(plant, H, A) elements.
 
@@ -62,6 +71,7 @@
 #include "costs.cuh"
 #include "plants.cuh"
 #include "riccati_step.cuh"
+#include "rollout_group.cuh"
 #include "tile_copy.cuh"
 
 namespace {
@@ -79,7 +89,7 @@ struct SolveArgs {
   int chunk, slots, cost_steps;  // rollout staging: steps per chunk, 1 or 2 slots; steps per cost block
   qt::StepSizes<T> h;
   T reg, tol, barrier_alpha, barrier_beta;
-  const T *x_init, *u_init, *cost_init, *q, *r, *x_ref, *qf, *xf_ref, *alphas;
+  const T *x_init, *u_init, *cost_init, *q, *r, *x_ref, *qf, *xf_ref, *alphas, *x0;  // x_init null: roll out from x0
   T *x, *u, *k, *big_k, *stats;
   // Workspace, carved by carve().
   T *a, *b, *lx, *lu, *lxx, *luu, *lux, *kt, *big_kt, *cand_x, *cand_u;
@@ -156,6 +166,40 @@ __device__ __forceinline__ void stage_chunk(const SolveArgs<T>& g, T* slot, int 
   qt::load_tile_async(g.big_kt + (size_t)t0 * M * N, len * M * N, [&](int e) { return slot + c * (N + 2 * M) + e; });
 }
 
+// The prologue's rollout: u_init from x0 into x, by one warp with the lane
+// group of K2 (u_t = u_init_t, what K2 computes at zero gains and alpha 1).
+// Every group of the warp runs the same rollout, since the group's shuffles
+// name the whole warp; group 0 stores it. u_init's next step is loaded while
+// the current one integrates.
+template <typename T, typename P>
+__device__ __forceinline__ void roll_out_u_init(const SolveArgs<T>& g, const P& plant, int lane) {
+  using Grp = typename qt::GroupOf<T, P>::type;
+  constexpr int G = Grp::G, E = Grp::E, N = Grp::N, M = Grp::M;
+  const Grp grp = Grp::from(plant);
+  const int role = lane % G;
+  const bool store = lane < G;
+  T x[E], u[M], u_next[M];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    x[e] = g.x0[Grp::entry(role, e)];
+    if (store) g.x[Grp::entry(role, e)] = x[e];
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) u_next[j] = g.H > 0 ? g.u_init[j] : T(0);
+  for (int t = 0; t < g.H; ++t) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      u[j] = u_next[j];
+      if (t + 1 < g.H) u_next[j] = g.u_init[(size_t)(t + 1) * M + j];
+    }
+    qt::group_step(grp, role, g.rk4, g.h, x, u);
+    if (store) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) g.x[(size_t)(t + 1) * N + Grp::entry(role, e)] = x[e];
+    }
+  }
+}
+
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant) {
   constexpr int N = P::N;
@@ -177,7 +221,9 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
   const int nt = blockDim.x;
   const int H = g.H;
 
-  for (int i = tid; i < (H + 1) * N; i += nt) g.x[i] = g.x_init[i];
+  const bool roll_out = g.x_init == nullptr;
+  if (!roll_out)
+    for (int i = tid; i < (H + 1) * N; i += nt) g.x[i] = g.x_init[i];
   for (int i = tid; i < H * M; i += nt) {
     g.u[i] = g.u_init[i];
     g.k[i] = T(0);
@@ -193,11 +239,29 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
     xfref_s[i] = g.xf_ref[i];
   }
   if (tid == 0) {
-    cur_cost = g.cost_init[0];
+    if (!roll_out) cur_cost = g.cost_init[0];
     done = 0;
     iters = 0;
   }
+  if (roll_out && tid < 32) roll_out_u_init(g, plant, tid);
   __syncthreads();
+  if (roll_out) {
+    // The rollout's cost: running costs of a block of steps on all threads,
+    // then thread 0 adds them in time order and the final cost last.
+    T run = T(0);
+    for (int t0 = 0; t0 < H; t0 += g.cost_steps) {
+      const int len = min(g.cost_steps, H - t0);
+      for (int j = tid; j < len; j += nt)
+        dyn[j] = qt::running_cost<N, M>(reloaded(q_s), reloaded(r_s), reloaded(xref_s), g.barrier_alpha,
+                                        g.barrier_beta, g.x + (size_t)(t0 + j) * N, g.u_init + (size_t)(t0 + j) * M);
+      __syncthreads();
+      if (tid == 0)
+        for (int j = 0; j < len; ++j) run = run + dyn[j];
+      __syncthreads();
+    }
+    if (tid == 0) cur_cost = run + qt::final_cost<N>(qf_s, xfref_s, g.x + (size_t)H * N);
+    __syncthreads();
+  }
 
   for (int trip = 0; trip < g.max_iter; ++trip) {
     // ---- 1. linearize: column d of [A_t | B_t] per thread ------------------
@@ -393,6 +457,7 @@ int launch(int H, int n_alpha, int max_iter, int rk4, const double* params, doub
   g.qf = i[6];
   g.xf_ref = i[7];
   g.alphas = i[8];
+  g.x0 = i[9];
   T* const* o = reinterpret_cast<T* const*>(out);
   g.x = o[0];
   g.u = o[1];
@@ -439,7 +504,7 @@ extern "C" long long qt_fused_solve_workspace(int plant, int H, int n_alpha) {
 
 // dtype: 0 = float32, 1 = float64. plant and params as in qt_fused_rollout
 // (0 = quadrotor, 1 = cart-pole). rk4: 1 = RK4, 0 = forward Euler.
-// in: the nine input arrays in the order of the header comment; out: the five
+// in: the ten input arrays in the order of the header comment; out: the five
 // outputs (host arrays of device pointers). workspace_elems is the size of the
 // workspace that was allocated. Returns 0 or the cudaError_t of the launch.
 extern "C" int qt_fused_solve(int dtype, int plant, int H, int n_alpha, int max_iter, int rk4,
@@ -448,8 +513,9 @@ extern "C" int qt_fused_solve(int dtype, int plant, int H, int n_alpha, int max_
                               void* const* out, void* workspace, long long workspace_elems,
                               void* stream) {
   const long long need = qt_fused_solve_workspace(plant, H, n_alpha);
+  const bool from_x0 = in[0] == nullptr;  // x_init with cost_init, or x0 alone
   if (need < 0 || workspace_elems < need || n_alpha > kMaxAlphas || max_iter < 0 || dtype < 0 ||
-      dtype > 1)
+      dtype > 1 || from_x0 != (in[2] == nullptr) || from_x0 == (in[9] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QT_LAUNCH(T, Plant)                                                                      \

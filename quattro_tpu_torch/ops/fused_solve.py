@@ -7,7 +7,10 @@ running cost summed step by step and the final cost added last, first-accept
 select and the convergence bookkeeping, under a ``done`` mask. Trips after
 convergence recompute on the frozen trajectory and are discarded, so a solve
 always does the same work; the gains returned are those of the last active
-trip.
+trip. ``fused_ilqr_solve_from_x0`` is the same solve given the start state:
+the launch rolls ``u_init`` out from ``x0`` and costs it before its first
+trip, where ``fused_ilqr_solve_kernel`` (the JAX function's counterpart)
+takes that rollout and its cost from the caller.
 
 The TPU kernel traces the user's dynamics and costs into its body. A CUDA
 kernel cannot, so ``csrc/fused_solve.cu`` carries the in-repo plants
@@ -31,6 +34,7 @@ from quattro_tpu_torch.ops import _build
 from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_fused_single_plain
 from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant, fused_feedback_rollouts_plain
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
+from quattro_tpu_torch.solver.rollout import simulate
 
 KERNEL = "fused_solve"
 SUPPORTED_COSTS = ("quadratic", "quadratic_final")
@@ -40,6 +44,15 @@ Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 RunningCost = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 FinalCost = Callable[[torch.Tensor], torch.Tensor]
 SolveOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _cost_in_time_order(step_cost, last_cost, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """Σ_t L(x_t, u_t) + Lf(x_H) as K3 sums it: the running costs added one step at a time from t = 0, the final
+    cost last. ``xs`` (..., H+1, n) and ``us`` (..., H, m); ``step_cost`` and ``last_cost`` take the leading axes."""
+    run = torch.zeros(xs.shape[:-2], dtype=xs.dtype, device=xs.device)
+    for t in range(us.shape[-2]):
+        run = run + step_cost(xs[..., t, :], us[..., t, :])
+    return run + last_cost(xs[..., -1, :])
 
 
 def fused_ilqr_solve_kernel_plain(
@@ -77,12 +90,8 @@ def fused_ilqr_solve_kernel_plain(
             a_seq, b_seq, cost_exp, final_exp.v_x, final_exp.v_xx, reg
         )
         cand_x, cand_u = fused_feedback_rollouts_plain(dynamics, xs[0], xs, us, k_seq, big_k_seq, alphas_t)
-        # Running cost summed in time order per alpha, final cost last: the
-        # order decides near-tie accepts, so the kernel sums the same way.
-        run = torch.zeros_like(alphas_t)
-        for t in range(horizon):
-            run = run + step_cost(cand_x[:, t], cand_u[:, t])
-        total = run + last_cost(cand_x[:, -1])
+        # The order decides near-tie accepts, so the kernel sums the same way.
+        total = _cost_in_time_order(step_cost, last_cost, cand_x, cand_u)
 
         accepted = total <= cur
         found = accepted.any()
@@ -133,7 +142,10 @@ def cost_tables(kernel: str, cost, final_cost, n: int, m: int, like: torch.Tenso
 
 def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas):
     """K3's checked arguments: ``(fn, args, outputs, keep)``. ``fn(*args, stream)`` is one launch
-    (``_build.launch`` adds the stream); ``keep`` holds the tensors that the pointers in ``args`` name."""
+    (``_build.launch`` adds the stream); ``keep`` holds the tensors that the pointers in ``args`` name.
+
+    ``cost_init`` None: ``x_init_seq`` is the start state x0 (n,), and the launch rolls ``u_init`` out
+    from it and costs it before its first trip."""
     horizon, m = u_init.shape
     n = x_init_seq.shape[-1]
     n_alpha = len(alphas)
@@ -148,16 +160,19 @@ def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter
         )
     tables, barrier_alpha, barrier_beta = cost_tables(KERNEL, cost, final_cost, n, m, x_init_seq)
     q, r, x_ref, qf, xf_ref = tables
-    cost_init = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(1)
     alphas_t = torch.tensor([float(a) for a in alphas], dtype=dtype, device=device)
-    inputs = [x_init_seq, u_init, cost_init, q, r, x_ref, qf, xf_ref, alphas_t]
-    shapes = [(horizon + 1, n), (horizon, m), (1,), (n, n), (m, m), (n,), (n, n), (n,), (n_alpha,)]
+    # The entry point's ten inputs: x_init and cost_init with x0 (the last) null, or x0 with the two null.
+    x_init, x0 = (None, x_init_seq) if cost_init is None else (x_init_seq, None)
+    if cost_init is not None:
+        cost_init = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(1)
+    inputs = [x_init, u_init, cost_init, q, r, x_ref, qf, xf_ref, alphas_t, x0]
+    shapes = [(horizon + 1, n), (horizon, m), (1,), (n, n), (m, m), (n,), (n, n), (n,), (n_alpha,), (n,)]
     for t, shape in zip(inputs, shapes):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != device):
             raise ValueError(
                 f"{KERNEL}: expected {shape} {dtype} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
-    inputs = [t.contiguous() for t in inputs]
+    inputs = [None if t is None else t.contiguous() for t in inputs]
     outputs = [
         x_init_seq.new_empty((horizon + 1, n)),
         x_init_seq.new_empty((horizon, m)),
@@ -175,7 +190,7 @@ def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter
     fn = _build.bind(KERNEL, "qt_fused_solve", ctypes.c_int,
                      [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 5
                      + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
-    in_ptrs = (ctypes.c_void_p * len(inputs))(*[t.data_ptr() for t in inputs])
+    in_ptrs = (ctypes.c_void_p * len(inputs))(*[None if t is None else t.data_ptr() for t in inputs])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
     args = (DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt, float(reg), float(tol),
             barrier_alpha, barrier_beta, in_ptrs, out_ptrs, workspace.data_ptr(), workspace_elems)
@@ -220,3 +235,46 @@ def fused_ilqr_solve_kernel(
             dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas
         )
     raise ValueError(f"{KERNEL}: unsupported device {x_init_seq.device}")
+
+
+def fused_ilqr_solve_from_x0_plain(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0: torch.Tensor,
+    u_init: torch.Tensor,
+    max_iter: int,
+    tol: float,
+    reg: float,
+    alphas: Sequence[float],
+) -> SolveOutputs:
+    """Plain PyTorch form of K3 given x0: ``simulate``, the cost in K3's time order, then the plain solve."""
+    x_init_seq = simulate(dynamics, x0, u_init)
+    cost_init = _cost_in_time_order(cost, final_cost, x_init_seq, u_init)
+    return fused_ilqr_solve_kernel_plain(
+        dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas
+    )
+
+
+def fused_ilqr_solve_from_x0(
+    dynamics: Dynamics,
+    cost: RunningCost,
+    final_cost: FinalCost,
+    x0: torch.Tensor,  # (n,) start state
+    u_init: torch.Tensor,  # (H, m)
+    max_iter: int,
+    tol: float,
+    reg: float,
+    alphas: Sequence[float],
+) -> SolveOutputs:
+    """``fused_ilqr_solve_kernel`` from the start state: K3 once on CUDA tensors, the plain form on CPU tensors.
+
+    Before its first trip the launch rolls ``u_init`` out from ``x0`` with K2's step, so the trajectory
+    is K2's at zero gains and step size 1, and sums its cost in time order with the final cost last,
+    as it sums each line-search candidate's. Outputs and refusals as ``fused_ilqr_solve_kernel``'s.
+    """
+    if x0.is_cuda:
+        return _launch(dynamics, cost, final_cost, x0, u_init, None, max_iter, tol, reg, alphas)
+    if x0.device.type == "cpu":
+        return fused_ilqr_solve_from_x0_plain(dynamics, cost, final_cost, x0, u_init, max_iter, tol, reg, alphas)
+    raise ValueError(f"{KERNEL}: unsupported device {x0.device}")

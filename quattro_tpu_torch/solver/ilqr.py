@@ -7,7 +7,8 @@ when no step is accepted OR |J_prev - J_new| < tol (with ``adaptive_reg``,
 retry with a larger regularizer instead of stopping, up to ``reg_max``).
 
 ``ilqr_solve_fused`` runs the whole solve as one launch of kernel K3
-(``ops/fused_solve.py``) with fixed ``max_iter`` masked trips.
+(``ops/fused_solve.py``) with fixed ``max_iter`` masked trips; on the card
+that launch also rolls out and costs the warm start.
 """
 
 from __future__ import annotations
@@ -257,26 +258,35 @@ def ilqr_solve_fused(
     same convergence semantics as ``ilqr_solve`` and a step latency that does
     not depend on the data. One host read (of ``stats``) per solve.
 
+    On CUDA tensors that one launch also rolls ``u_init`` out from ``x0`` and
+    costs it (``fused_ilqr_solve_from_x0``), summing the cost in time order
+    where ``trajectory_cost`` sums a tree, so the initial cost may differ in
+    its last bits. CPU tensors take ``simulate``, ``trajectory_cost`` and the
+    kernel's plain PyTorch form, as the JAX entry point does.
+
     Constraints: static ``reg`` (no ``adaptive_reg``); on CUDA the dynamics
     and costs must be ones the kernel knows (see ``fused_ilqr_solve_kernel``);
-    ``config.riccati``/``linesearch`` are ignored (everything is fused). On
-    CPU tensors the kernel's plain PyTorch form runs.
+    ``config.riccati``/``linesearch`` are ignored (everything is fused).
     """
-    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_kernel
+    from quattro_tpu_torch.ops.fused_solve import fused_ilqr_solve_from_x0, fused_ilqr_solve_kernel
 
     if config.adaptive_reg:
         raise ValueError(
             "ilqr_solve_fused runs every trip with the one reg it is given (the kernel "
             "carries no mu-schedule); adaptive_reg needs ilqr_solve"
         )
-    with span("mpc.initial_rollout"):
-        x_init = _initial_rollout(dynamics, x0, u_init)
-        cost_init = trajectory_cost(cost, final_cost, x_init, u_init)
-    with span("mpc.k3_launch"):
-        x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_kernel(
-            dynamics, cost, final_cost, x_init, u_init, cost_init,
-            config.max_iter, config.tol, config.reg, tuple(config.alphas),
-        )
+    problem = (dynamics, cost, final_cost)
+    trips = (config.max_iter, config.tol, config.reg, tuple(config.alphas))
+    if x0.is_cuda:
+        with span("mpc.k3_launch"):
+            x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_from_x0(*problem, x0, u_init, *trips)
+    else:
+        with span("mpc.initial_rollout"):
+            x_init = simulate(dynamics, x0, u_init)
+            cost_init = trajectory_cost(cost, final_cost, x_init, u_init)
+        with span("mpc.k3_launch"):
+            x_seq, u_seq, k_seq, big_k_seq, stats = fused_ilqr_solve_kernel(*problem, x_init, u_init, cost_init, *trips)
+    count("mpc.k3_rollouts", int(x0.is_cuda))  # 1 where K3 rolled out the warm start, 0 on the host's path
     with span("mpc.stats_read"):
         _, iterations, converged = stats[0].tolist()  # the solve's one host read
     count("mpc.iterations", int(iterations))

@@ -30,6 +30,7 @@ from quattro_tpu_torch.solver import (
     make_quadratic_cost, make_quadratic_final_cost, simulate, trajectory_cost,
 )
 from quattro_tpu_torch.solver.derivatives import quadratize_final_cost
+from quattro_tpu_torch.solver.ilqr import _initial_rollout
 from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete, quadrotor_dynamics
 
 RTOL = 1e-9
@@ -315,11 +316,11 @@ def test_k3_on_card_refuses_unknown_plants_and_costs(cuda_device):
 
 @pytest.mark.cuda
 def test_ilqr_solve_fused_on_card_matches_while_solve(cuda_device):
-    """One K3 launch (and one K2 launch for the initial rollout) per solve; same solve as seq + xla."""
+    """One K3 launch per solve, which rolls out the warm start itself (no K2); same solve as seq + xla."""
     dyn, cost, fcost, x0, u0 = solve_problem(cuda_device, "quadrotor", 16)
     _build.reset_launches()
     fused = ilqr_solve_fused(dyn, cost, fcost, x0, u0, ILQRConfig(tol=1e-3, max_iter=12))
-    assert dict(_build.launches) == {fused_solve.KERNEL: 1, fused_rollout.KERNEL: 1}
+    assert dict(_build.launches) == {fused_solve.KERNEL: 1}
     seq = ilqr_solve(dyn, cost, fcost, x0, u0, ILQRConfig(tol=1e-3, max_iter=12, riccati="seq", linesearch="xla"))
     assert fused.iterations == seq.iterations and fused.converged == seq.converged
     # The fused step law and the sequential one place reg differently: 1e-7, as the JAX tests hold them.
@@ -340,8 +341,65 @@ def test_megakernel_mpc_launches_k3_once_per_step(cuda_device):
         x = plant(x, u)
     torch.cuda.synchronize()
     assert _build.launches[fused_solve.KERNEL] == 3
-    assert _build.launches[fused_riccati.KERNEL] == 0
+    assert _build.launches[fused_riccati.KERNEL] == 0 and _build.launches[fused_rollout.KERNEL] == 0
     assert x_plan.shape == (21, 12) and bool(torch.isfinite(x_plan).all())
+
+
+# The cells' limits on |u - u_ref| (bench_cuda/limits/): the scale a float32 solve's controls are held to.
+U_GAP = {"quadrotor": 2.5e-3, "cartpole": 6e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("plant,horizon", [("quadrotor", 50), ("cartpole", 30)])
+def test_k3_from_x0_matches_k2_cost_and_k3(cuda_device, plant, horizon, dtype):
+    """K3 given x0 against the chain it replaces: K2's initial rollout, ``trajectory_cost`` and K3 given x_init.
+
+    The prologue's rollout within 1e-12 (float64) / 1e-6 (float32) normwise of K2's and its cost within 1e-12 /
+    1e-5 of ``trajectory_cost``'s (time order against a tree). The solve: float64 x, u, K and cost within 1e-12
+    normwise, k on the controls' scale, the same iterations; float32 controls within the cell's u_gap limit.
+    ``ilqr_solve_fused`` is the x0 launch alone.
+    """
+    dyn, cost, fcost, x0, u0 = solve_problem(cuda_device, plant, horizon)
+    if dtype != torch.float64:
+        cost = make_quadratic_cost(cost.q_mat.to(dtype), cost.r_mat.to(dtype), cost.x_ref.to(dtype),
+                                   barrier_alpha=cost.barrier_alpha, barrier_beta=cost.barrier_beta)
+        fcost = make_quadratic_final_cost(fcost.qf_mat.to(dtype), fcost.x_ref.to(dtype))
+        x0, u0 = x0.to(dtype), u0.to(dtype)
+    config = ILQRConfig(tol=1e-3 if plant == "quadrotor" else 1e-1, max_iter=6)
+    trips = (config.max_iter, config.tol, config.reg, config.alphas)
+    _build.reset_launches()
+    x_init = _initial_rollout(dyn, x0, u0)
+    cost_init = trajectory_cost(cost, fcost, x_init, u0)
+    old = fused_solve.fused_ilqr_solve_kernel(dyn, cost, fcost, x_init, u0, cost_init, *trips)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_rollout.KERNEL: 1, fused_solve.KERNEL: 1}
+    _build.reset_launches()
+    new = fused_solve.fused_ilqr_solve_from_x0(dyn, cost, fcost, x0, u0, *trips)
+    prologue = fused_solve.fused_ilqr_solve_from_x0(dyn, cost, fcost, x0, u0, 0, *trips[1:])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fused_solve.KERNEL: 2}
+
+    f64 = dtype == torch.float64
+    assert normwise(prologue[0], x_init) <= (1e-12 if f64 else 1e-6)
+    assert prologue[4][0, 1:].tolist() == [0.0, 0.0]
+    assert normwise(prologue[4][0, 0], cost_init) <= (1e-12 if f64 else 1e-5)
+    x, u, k, big_k, stats = new
+    rx, ru, rk, rbig_k, rstats = old
+    assert stats[0, 1:].tolist() == rstats[0, 1:].tolist()
+    if f64:
+        for name, o, r in (("x", x, rx), ("u", u, ru), ("K", big_k, rbig_k), ("cost", stats[0, 0], rstats[0, 0])):
+            assert normwise(o, r) <= 1e-12, name
+        scale = max(float(ru.abs().max()), float(rk.abs().max()), 1e-30)
+        assert float((k - rk).abs().max()) <= 1e-12 * scale
+    else:
+        assert float((u - ru).abs().max()) <= U_GAP[plant]
+
+    _build.reset_launches()
+    sol = ilqr_solve_fused(dyn, cost, fcost, x0, u0, config)
+    assert dict(_build.launches) == {fused_solve.KERNEL: 1}
+    assert torch.equal(sol.x_seq, x) and torch.equal(sol.u_seq, u) and torch.equal(sol.big_k_seq, big_k)
+    assert sol.iterations == int(stats[0, 1]) and float(sol.cost) == float(stats[0, 0])
 
 
 # ---------------------------------------------------------------------------

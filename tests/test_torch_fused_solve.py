@@ -106,6 +106,44 @@ def test_plain_k3_matches_the_ports_while_solve(name, tol, max_iter):
     close_solution(ref, out)
 
 
+@pytest.mark.parametrize("name,tol,max_iter", CONFIGS)
+def test_from_x0_plain_form_is_simulate_time_ordered_cost_and_plain_k3(name, tol, max_iter):
+    """The x0 entry's plain form is ``simulate``, the running costs added step by step and the final cost last,
+    then the plain K3, exactly in float64; its solve holds to JAX's megakernel as the x_init entry's does."""
+    jprob, (dyn, cost, fcost, x0, u0) = problems(name)
+    alphas = tsolver.ILQRConfig().alphas
+    x_init = tsolver.simulate(dyn, x0, u0)
+    cost_init = torch.zeros((), dtype=torch.float64)
+    for t in range(u0.shape[0]):
+        cost_init = cost_init + cost(x_init[t], u0[t])
+    cost_init = cost_init + fcost(x_init[-1])
+    ref = fused_solve.fused_ilqr_solve_kernel_plain(dyn, cost, fcost, x_init, u0, cost_init, max_iter, tol, 1e-6,
+                                                    alphas)
+    _build.reset_launches()
+    out = fused_solve.fused_ilqr_solve_from_x0(dyn, cost, fcost, x0, u0, max_iter, tol, 1e-6, alphas)
+    assert sum(_build.launches.values()) == 0  # CPU tensors never reach a kernel
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    x, u, k, big_k, stats = out
+    jref = jsolver.ilqr_solve_fused(*jprob, jsolver.ILQRConfig(tol=tol, max_iter=max_iter))
+    close_solution(jref, tsolver.ILQRSolution(x, u, stats[0, 0], int(stats[0, 1]), bool(stats[0, 2] > 0.5), k, big_k))
+
+
+@pytest.mark.parametrize("name,tol,max_iter", CONFIGS)
+def test_cpu_ilqr_solve_fused_is_the_host_chain_bit_for_bit(name, tol, max_iter):
+    """On CPU tensors ``ilqr_solve_fused`` stays ``simulate``, ``trajectory_cost`` and the x_init entry, bit for bit."""
+    _, (dyn, cost, fcost, x0, u0) = problems(name)
+    config = tsolver.ILQRConfig(tol=tol, max_iter=max_iter)
+    x_init = tsolver.simulate(dyn, x0, u0)
+    cost_init = tsolver.trajectory_cost(cost, fcost, x_init, u0)
+    x, u, k, big_k, stats = fused_solve.fused_ilqr_solve_kernel(
+        dyn, cost, fcost, x_init, u0, cost_init, max_iter, tol, config.reg, config.alphas
+    )
+    out = tsolver.ilqr_solve_fused(dyn, cost, fcost, x0, u0, config)
+    for o, r in ((out.x_seq, x), (out.u_seq, u), (out.k_seq, k), (out.big_k_seq, big_k), (out.cost, stats[0, 0])):
+        assert torch.equal(o, r)
+    assert out.iterations == int(stats[0, 1]) and out.converged == bool(stats[0, 2] > 0.5)
+
+
 def test_zero_iteration_case_matches_jax():
     """max_iter=0: the initial rollout, zero gains, iterations 0, not converged."""
     jprob, tprob = problems("cartpole")
@@ -158,4 +196,25 @@ def test_launch_refuses_what_the_kernel_does_not_carry(swap, match):
     _build.reset_launches()
     with pytest.raises(ValueError, match=match):
         fused_solve._launch(dyn, cost, fcost, x_init, tprob[4], torch.tensor(1.0), 2, 1e-3, 1e-6, (1.0,))
+    assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.parametrize(
+    "swap,match",
+    [
+        (lambda p: (tsystems.make_discrete(lambda x, u: tsystems.cartpole_dynamics(x, u), 0.01), p[1], p[2], p[3]),
+         "cartpole"),
+        (lambda p: (p[0], lambda x, u: p[1](x, u), p[2], p[3]), "make_quadratic_cost"),
+        (lambda p: (p[0], p[1], lambda x: p[2](x), p[3]), "make_quadratic_final_cost"),
+        (lambda p: (p[0], p[1], p[2], tsolver.simulate(p[0], p[3], p[4])), r"expected \(4,\)"),
+    ],
+    ids=["plant", "cost", "final-cost", "x0-shape"],
+)
+def test_launch_from_x0_refuses_what_the_kernel_does_not_carry(swap, match):
+    """The x0 launch reads the descriptors and the start state's shape before it builds or launches anything."""
+    _, tprob = problems("cartpole")
+    dyn, cost, fcost, start = swap(tprob)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        fused_solve._launch(dyn, cost, fcost, start, tprob[4], None, 2, 1e-3, 1e-6, (1.0,))
     assert sum(_build.launches.values()) == 0

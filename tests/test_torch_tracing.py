@@ -195,5 +195,24 @@ def test_megakernel_mpc_step_spans_and_iterations(monkeypatch):
     assert [s[4] for s in reads] == step_ids and all(s[4] == -1 for s in steps_)
     iterations = [sol.iterations for sol in solved[steps:]]
     assert np.diff(counted[steps:]).tolist() == iterations and counted[1:steps + 1] == [0] * steps
-    assert timing.counters() == {"mpc.iterations": sum(iterations), "mpc.trips": 3 * steps}
+    # CPU tensors take the host's initial rollout: no solve counts a rollout inside K3.
+    assert timing.counters() == {"mpc.iterations": sum(iterations), "mpc.trips": 3 * steps, "mpc.k3_rollouts": 0}
     assert all(1 <= i <= 3 for i in iterations)
+
+
+@pytest.mark.cuda
+def test_megakernel_mpc_step_on_card_rolls_out_in_k3():
+    """On the card K3 rolls out and costs the warm start: one count a step, no ``mpc.initial_rollout`` span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only on the GPU")
+    ctrl = make_quadrotor_mpc(horizon=8, solver="megakernel", max_iter=3)
+    x = torch.zeros(12, device="cuda")
+    x[2], x[6] = 0.2, 0.15
+    state, steps = ctrl.init_state(), 3
+    timing.tracing(True)
+    for _ in range(steps):
+        _, plan, state = ctrl.step(x, state)
+        x = plan[1]
+    assert timing.counters()["mpc.k3_rollouts"] == steps
+    assert len(by_name("mpc.step")) == len(by_name("mpc.k3_launch")) == len(by_name("mpc.stats_read")) == steps
+    assert by_name("mpc.initial_rollout") == []
