@@ -168,6 +168,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bench_cuda.work.kernels import bound_ms, k1_work, k2_work, k3_work, k4_work, k6_work, stage_entries
+
 # Acceptance bounds. Errors are normwise: max|kernel - plain| / max|plain|
 # per output tensor, kernel and plain form on the same inputs on the card.
 F64_KERNEL_REL = 1e-10
@@ -275,8 +277,8 @@ CPU_STEPS = 5
 TRAIN_CPU_REL = 1e-4
 TRAINED_HYBRID_STEPS = 10
 
-# The card's peaks (float32 and float64 without tensor cores, HBM3) come from
-# quattro_tpu_torch/utils/roofline.py's "h100-sxm" entry (see bound_ms).
+# The work model and the card's peaks (float32 and float64 without tensor cores, HBM3) are the
+# benchmark's (bench_cuda/work/); K5, K8 and K9, which it does not count, have theirs here.
 # Phase 14, the mesh path. Virtual meshes: every shard on the one card.
 MESH_SHARDS = 8
 MESH_F64_BATCH, MESH_F64_SHARDS = 512, 4
@@ -449,38 +451,6 @@ def bench_stages(dtype, horizon=100):
     return dyn, (a, b, exp, fin.v_x, fin.v_xx), x0, x_seq, u0, gains
 
 
-def k1_work(horizon, n, m, dtype):
-    """(bytes, flops) K1 must move and do: inputs read once, outputs written once."""
-    size = torch.finfo(dtype).bits // 8
-    inputs = horizon * (2 * n * n + n * m + n + m + m * m + m * n) + n + n * n
-    outputs = horizon * (m + m * n) + (horizon + 1) * (n + n * n)
-    step = (
-        4 * n**3 + 8 * n * n * m + 2 * n * n + 2 * n * m + 2 * n * m * m  # Q-expansion
-        + m**3 // 3 + 2 * m * m * (n + 1)  # Cholesky + two substitutions
-        + 2 * m * m + 4 * n * n * m + 4 * n * m  # value update
-    )
-    return (inputs + outputs) * size, horizon * step
-
-
-def k2_work(horizon, n_alpha, dtype):
-    size = torch.finfo(dtype).bits // 8
-    n, m = 12, 4
-    inputs = n + horizon * (n + m + m + m * n) + n_alpha
-    outputs = n_alpha * ((horizon + 1) * n + horizon * m)
-    field = 80  # flops of one vector-field evaluation, sin/cos/tan/divide counted as one each
-    step = m * (2 * n + 2) + n + 4 * field + 6 * n + 5 * n
-    return (inputs + outputs) * size, n_alpha * horizon * step
-
-
-def bound_ms(work, dtype):
-    from quattro_tpu_torch.utils.roofline import PEAKS
-
-    peak = PEAKS["h100-sxm"]
-    nbytes, flops = work
-    t_bytes, t_ops = nbytes / peak.hbm_bytes, flops / peak.flops(dtype)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def phase_k1(report):
     from quattro_tpu_torch.ops.fused_riccati import (
         riccati_backward_fused_single, riccati_backward_fused_single_plain,
@@ -502,7 +472,7 @@ def phase_k1(report):
         if dtype == torch.float32:
             ms = time_ms(lambda: riccati_backward_fused_single(*stages, 1e-6), 200)
             plain_ms = time_ms(lambda: riccati_backward_fused_single_plain(*stages, 1e-6), 5)
-            b_ms, b_by = bound_ms(k1_work(100, 12, 4, dtype), dtype)
+            b_ms, b_by = bound_ms(k1_work(100, 12, 4, dtype_name(dtype)), dtype_name(dtype))
             report[K1] = dict(
                 name=K1, route="cuda", source="quattro_tpu_torch/csrc/fused_riccati_single.cu",
                 replaces="quattro_tpu/ops/fused_riccati.py:864", launches=0,
@@ -525,7 +495,7 @@ def k1_timing(dtype):
         call = lambda: riccati_backward_fused_single(*stages, 1e-6)
         call_ms = time_ms(call, 100)
         dev_ms, queued = queued_ms(call, 10)  # ten calls queue within the sleep (about 0.13 ms of host time each)
-        b_ms, b_by = bound_ms(k1_work(horizon, 12, 4, dtype), dtype)
+        b_ms, b_by = bound_ms(k1_work(horizon, 12, 4, dtype_name(dtype)), dtype_name(dtype))
         timing[horizon] = dict(call_ms=call_ms, queued_ms=dev_ms, queued=queued, us_per_step=1e3 * dev_ms / horizon,
                                bound_us_per_step=1e3 * b_ms / horizon)
         log(f"K1 float32 H={horizon}: call {call_ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]}, "
@@ -555,7 +525,7 @@ def phase_k2(report):
         if dtype == torch.float32:
             ms = time_ms(lambda: fused_feedback_rollouts(*args), 200)
             plain_ms = time_ms(lambda: fused_feedback_rollouts_plain(*args), 5)
-            b_ms, b_by = bound_ms(k2_work(100, 6, dtype), dtype)
+            b_ms, b_by = bound_ms(k2_work(100, 12, 4, 6, 80, dtype_name(dtype)), dtype_name(dtype))
             report[K2] = dict(
                 name=K2, route="cuda", source="quattro_tpu_torch/csrc/fused_rollout_single.cu",
                 replaces="quattro_tpu/ops/fused_rollout.py:48", launches=0,
@@ -632,28 +602,12 @@ def k2_timing(dtype):
             raise AssertionError(f"K2 at H={horizon}: non-finite candidates")
         call_ms = time_ms(call, 100)
         dev_ms, queued = queued_ms(call, 10)
-        b_ms, b_by = bound_ms(k2_work(horizon, len(ALPHAS), dtype), dtype)
+        b_ms, b_by = bound_ms(k2_work(horizon, 12, 4, len(ALPHAS), 80, dtype_name(dtype)), dtype_name(dtype))
         timing[horizon] = dict(call_ms=call_ms, queued_ms=dev_ms, queued=queued, us_per_step=1e3 * dev_ms / horizon,
                                bound_us_per_step=1e3 * b_ms / horizon)
         log(f"K2 float32 H={horizon} A=6: call {call_ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]}, "
             f"{1e3 * dev_ms / horizon:.3f} us per step (bound {1e3 * b_ms / horizon:.2e} us per step, {b_by})")
     return timing
-
-
-def k3_work(horizon, n, m, n_alpha, trips, field_flops, dtype):
-    """(bytes, flops) of one K3 solve: every one of the fixed trips does its full work."""
-    size = torch.finfo(dtype).bits // 8
-    inputs = (horizon + 1) * n + horizon * m + 1 + 2 * n * n + m * m + 2 * n + n_alpha
-    outputs = (horizon + 1) * n + 2 * horizon * m + horizon * m * n + 3
-    # What jacfwd of the RK4 step needs: the four field values and their
-    # combination once per time step, and per Jacobian column the tangent
-    # alone through every operation (twice a field's flops) and the combination.
-    linearize = horizon * ((4 * field_flops + 6 * n) + (n + m) * (4 * 2 * field_flops + 12 * n))
-    quadratize = horizon * (2 * n * n + 2 * m * m + 30 * m)
-    riccati = k1_work(horizon, n, m, dtype)[1]
-    step_cost = 2 * n * n + 2 * n + 2 * m * m + 2 * m + 12 * m
-    rollouts = n_alpha * horizon * (m * (2 * n + 2) + n + 4 * field_flops + 11 * n + step_cost)
-    return (inputs + outputs) * size, trips * (linearize + quadratize + riccati + rollouts)
 
 
 def phase_k3(report):
@@ -726,7 +680,8 @@ def phase_k3(report):
                         if dtype == torch.float32 and label.startswith("quadrotor"):
                             k3_timing[horizon].update(from_x0_call_ms=ms, from_x0_queued_ms=dev_ms)
                         continue
-                    b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype), dtype)
+                    b_ms, b_by = bound_ms(k3_work(horizon, n, m, len(ALPHAS), trips, field_flops, dtype_name(dtype)),
+                                          dtype_name(dtype))
                     log(f"K3 {label} {dtype}, {trips} trips: call {ms:.4f} ms, device {dev_ms:.4f} ms{QUEUED[queued]} "
                         f"({per_step:.3f} us per time step per trip), plain {plain_ms:.1f} ms, bound {b_ms:.2e} ms ({b_by})")
                     if dtype == torch.float32 and label.startswith("quadrotor"):
@@ -789,16 +744,9 @@ def warm_batch(dtype, batch):
     return dyn, cost, xs, us, (a, b, exp), v_x, v_xx
 
 
-def stage_entries(n, m):
-    return 2 * n * n + 2 * n * m + m * m + n + m
-
-
-def k4_work(batch, horizon, n, m, dtype):
-    """(bytes, flops) of the batched backward pass: K1's step on every trajectory; gains only."""
-    size = torch.finfo(dtype).bits // 8
-    inputs = batch * (horizon * stage_entries(n, m) + n + n * n)
-    outputs = batch * horizon * (m + m * n)
-    return (inputs + outputs) * size, batch * k1_work(horizon, n, m, dtype)[1]
+def dtype_name(dtype):
+    """The work model's name of a torch dtype: ``"float32"`` or ``"float64"``."""
+    return str(dtype).removeprefix("torch.")
 
 
 def k5_work(batch, horizon, n, m, field_flops, dtype):
@@ -806,19 +754,9 @@ def k5_work(batch, horizon, n, m, field_flops, dtype):
     size = torch.finfo(dtype).bits // 8
     inputs = batch * ((horizon + 1) * n + horizon * m) + n * n + m * m + n
     outputs = batch * horizon * stage_entries(n, m)
-    linearize = (4 * field_flops + 6 * n) + (n + m) * (4 * 2 * field_flops + 12 * n)  # as in k3_work
+    linearize = (4 * field_flops + 6 * n) + (n + m) * (4 * 2 * field_flops + 12 * n)  # as k3_work counts it
     quadratize = 2 * n * n + 2 * m * m + 30 * m
     return (inputs + outputs) * size, batch * horizon * (linearize + quadratize)
-
-
-def k6_work(batch, horizon, n_alpha, dtype):
-    """(bytes, flops) of the all-alpha rollouts of a batch: K2's work on every trajectory."""
-    size = torch.finfo(dtype).bits // 8
-    n_bytes, flops = k2_work(horizon, n_alpha, dtype)
-    n, m = 12, 4
-    inputs = batch * (n + (horizon + 1) * n + horizon * (2 * m + m * n)) + n_alpha
-    outputs = n_alpha * batch * ((horizon + 1) * n + horizon * m)
-    return (inputs + outputs) * size, batch * flops
 
 
 def rel_errs(names, outs, refs):
@@ -879,7 +817,7 @@ def phase_k4(report):
             dense = [x.contiguous() for x in (a, b)] + [CostExpansion(*(e.contiguous() for e in exp))]
             dev_ms, queued = queued_ms(lambda: fr.riccati_backward_batched_fused(*dense, v_x, v_xx, 1e-6), 20)
             plain_ms = time_ms(lambda: fr.riccati_backward_batched_fused_plain(*args), 1)
-            b_ms, b_by = bound_ms(k4_work(batch, BATCH_H, 12, 4, dtype), dtype)
+            b_ms, b_by = bound_ms(k4_work(batch, BATCH_H, 12, 4, dtype_name(dtype)), dtype_name(dtype))
             log(f"K4 float32 B={batch} H={BATCH_H}: kernel {ms:.4f} ms (packed input {ms_packed:.4f}, bf16 stream "
                 f"{ms16:.4f}; contiguous natural input, device {dev_ms:.4f}{QUEUED[queued]}), plain {plain_ms:.1f} ms, "
                 f"bound {b_ms:.2e} ms ({b_by})")
@@ -935,7 +873,7 @@ def phase_k5(report):
                 f"{peak / 1e9:.2f} GB peak")
             if dtype == torch.float32:
                 ms = time_ms(lambda: linquad_batched_fused(dyn, cost, xs, us), 20)
-                b_ms, b_by = bound_ms(k5_work(batch, BATCH_H, 12, 4, 80, dtype), dtype)
+                b_ms, b_by = bound_ms(k5_work(batch, BATCH_H, 12, 4, 80, dtype), dtype_name(dtype))
                 timing[batch] = dict(ms=ms, bound_ms=b_ms, tile_s=tile_s)
                 log(f"K5 float32 B={batch} tile_s={tile_s} H={BATCH_H}: kernel {ms:.4f} ms, bound {b_ms:.2e} ms "
                     f"({b_by})")
@@ -988,7 +926,7 @@ def phase_k67(report):
             if dtype != torch.float32:
                 continue
             plain_ms = time_ms(lambda: fro.fused_feedback_rollouts_batched_plain(*args), 1)
-            b_ms, b_by = bound_ms(k6_work(batch, BATCH_H, len(ALPHAS), dtype), dtype)
+            b_ms, b_by = bound_ms(k6_work(batch, BATCH_H, 12, 4, len(ALPHAS), 80, dtype_name(dtype)), dtype_name(dtype))
             for name, fn, line in ((K6, fro.fused_feedback_rollouts_batched2d, 150),
                                    (K7, fro.fused_feedback_rollouts_batched, 374)):
                 ms = time_ms(lambda: fn(*args), 50)
@@ -1051,7 +989,7 @@ def phase_k8(report):
         ms, library_ms = in_turns(lambda: batched_cholesky_solve_fused(a, b), library, 20)
         (kernel_ms, queued), (library_dev_ms, library_queued) = queued_ms(bare, 20), queued_ms(library, 20)
         plain_ms = time_ms(lambda: batched_cholesky_solve_plain(a, b), 3)
-        b_ms, b_by = bound_ms(k8_work(batch, 4, r, dtype), dtype)
+        b_ms, b_by = bound_ms(k8_work(batch, 4, r, dtype), dtype_name(dtype))
         log(f"{label}: call {ms:.4f} ms, kernel only {kernel_ms:.4f} ms{QUEUED[queued]}; torch.linalg.solve call "
             f"{library_ms:.4f} ms, device {library_dev_ms:.4f} ms{QUEUED[library_queued]}; plain {plain_ms:.3f} ms; "
             f"bound {b_ms:.2e} ms ({b_by}), {b_ms / kernel_ms:.1%} of it; {batch / kernel_ms * 1e3:.3e} systems/s")
@@ -1116,7 +1054,7 @@ def phase_k9(report):
         (kernel_ms, queued), (library_dev_ms, library_queued) = queued_ms(bare, 50), queued_ms(library, 50)
         residual_ms = min(time_ms(lambda: kkt_residual(mat, x, rhs), 50) for _ in range(3))
         plain_ms = time_ms(lambda: btd_matvec_plain(mat, x), 10)
-        b_ms, b_by = bound_ms(k9_work(num_blocks, n, dtype), dtype)
+        b_ms, b_by = bound_ms(k9_work(num_blocks, n, dtype), dtype_name(dtype))
         log(f"{label}: call {ms:.4f} ms, kernel only {kernel_ms:.4f} ms{QUEUED[queued]} "
             f"({mat.block_nnz / kernel_ms * 1e3:.3e} block-nnz/s); stacked-band bmm call {library_ms:.4f} ms, device "
             f"{library_dev_ms:.4f} ms{QUEUED[library_queued]} (rel err {lib_err:.1e}; stacking not timed); "

@@ -11,9 +11,12 @@
 - ``blocktridiag``: the block-tridiagonal KKT type, its SpMV (K9), assembly,
   block-Thomas solve and residual.
 
-Kernels build lazily on first use (``_build``); ``_build.launches`` counts
-launches. JAX's ``batched_cholesky_solve_pallas`` and ``btd_matvec_pallas``
-are ``batched_cholesky_solve_fused`` and ``btd_matvec_fused`` here.
+``contract`` states what the kernels take (dtypes, the Riccati step's size
+caps, the plants and costs with device code) and holds the wrappers' one
+input check and CPU/CUDA dispatch. Kernels build lazily on first use
+(``_build``); ``_build.launches`` counts launches. JAX's
+``batched_cholesky_solve_pallas`` and ``btd_matvec_pallas`` are
+``batched_cholesky_solve_fused`` and ``btd_matvec_fused`` here.
 """
 
 from quattro_tpu_torch.ops.blocktridiag import (

@@ -39,11 +39,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops import _build, contract
 from quattro_tpu_torch.solver.derivatives import CostExpansion
 
 KERNEL = "btd_matvec"
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 _ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6  # qt_btd_matvec
 
 
@@ -87,7 +86,7 @@ def _launch(mat: BlockTridiagonal, x: torch.Tensor, rhs: Optional[torch.Tensor] 
     transposed in memory).
     """
     diag, lower = mat.diag, mat.lower
-    dtype = _DTYPES.get(diag.dtype)
+    dtype = contract.DTYPES.get(diag.dtype)
     shape = diag.shape
     if dtype is None or len(shape) != 3 or shape[1] != shape[2] or shape[0] < 1 or shape[1] < 1:
         raise ValueError(f"{KERNEL}: expected float32 or float64 diag (N, n, n) with N, n >= 1, "
@@ -123,11 +122,7 @@ def btd_matvec_fused(mat: BlockTridiagonal, x: torch.Tensor) -> torch.Tensor:
     padding have no counterpart: the kernel stages tiles of block rows from
     where the bands lie.
     """
-    if mat.diag.is_cuda:
-        return _launch(mat, x)
-    if mat.diag.device.type == "cpu":
-        return btd_matvec_plain(mat, x)
-    raise ValueError(f"{KERNEL}: unsupported device {mat.diag.device}")
+    return contract.on_device(KERNEL, mat.diag, _launch, btd_matvec_plain, mat, x)
 
 
 btd_matvec = btd_matvec_fused  # JAX's public name for the SpMV: K9 on CUDA, the plain form on the CPU
@@ -245,8 +240,8 @@ def kkt_residual(mat: BlockTridiagonal, solution: torch.Tensor, rhs: torch.Tenso
     CUDA tensors: one K9 launch, which reduces |M z - r| over each block row
     in the kernel; CPU tensors: the plain form.
     """
-    if mat.diag.is_cuda:
-        return _launch(mat, solution, rhs)
-    if mat.diag.device.type == "cpu":
-        return (btd_matvec_plain(mat, solution) - rhs).abs().amax(dim=-1)
-    raise ValueError(f"{KERNEL}: unsupported device {mat.diag.device}")
+    return contract.on_device(KERNEL, mat.diag, _launch, _kkt_residual_plain, mat, solution, rhs)
+
+
+def _kkt_residual_plain(mat: BlockTridiagonal, solution: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    return (btd_matvec_plain(mat, solution) - rhs).abs().amax(dim=-1)

@@ -31,7 +31,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops import _build, contract
 from quattro_tpu_torch.ops.fused_riccati import (
     LANE,
     default_tile_s,
@@ -39,8 +39,6 @@ from quattro_tpu_torch.ops.fused_riccati import (
     stage_shapes,
     unpack_stage,
 )
-from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant
-from quattro_tpu_torch.ops.fused_solve import cost_tables
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost
 
 KERNEL = "fused_linquad"
@@ -85,14 +83,11 @@ def _launch(dynamics, cost, x_seq, u_seq, tile_s, block_t):
     tile_s, h_pad = _layout(x_seq, u_seq, tile_s, block_t)
     batch, horizon, m = u_seq.shape
     n = x_seq.shape[-1]
-    plant_id, params, rk4, dt = device_plant(dynamics, KERNEL, n, m)
+    plant_id, params, rk4, dt = contract.device_plant(dynamics, KERNEL, n, m)
     dtype, device = x_seq.dtype, x_seq.device
-    if dtype not in DTYPES:
-        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
-    if u_seq.dtype != dtype or u_seq.device != device:
-        raise ValueError(f"{KERNEL}: u_seq is {u_seq.dtype} on {u_seq.device}, x_seq {dtype} on {device}")
-    (q, r, x_ref), barrier_alpha, barrier_beta = cost_tables(KERNEL, cost, None, n, m, x_seq)
-    inputs = [x_seq.contiguous(), u_seq.contiguous(), q, r, x_ref]
+    data = contract.checked(KERNEL, [x_seq, u_seq], [(batch, horizon + 1, n), (batch, horizon, m)], dtype, device)
+    tables, barrier_alpha, barrier_beta = contract.cost_tables(KERNEL, cost, None, n, m, x_seq)
+    inputs = data + tables
     chunk = tile_s * LANE
     outputs = [x_seq.new_empty((batch // chunk * h_pad, math.prod(tail), tile_s, LANE))
                for tail in stage_shapes(n, m)]
@@ -101,7 +96,7 @@ def _launch(dynamics, cost, x_seq, u_seq, tile_s, block_t):
                      [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double)] + [ctypes.c_double] * 3
                      + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
-    _build.launch(KERNEL, fn, device, DTYPES[dtype], plant_id, batch, horizon, h_pad, chunk, rk4, params, dt,
+    _build.launch(KERNEL, fn, device, contract.DTYPES[dtype], plant_id, batch, horizon, h_pad, chunk, rk4, params, dt,
                   barrier_alpha, barrier_beta, *[t.data_ptr() for t in inputs], out_ptrs)
     return tuple(outputs)
 
@@ -129,8 +124,5 @@ def linquad_batched_fused(
     ``make_quadratic_cost``; anything else raises ``ValueError``. CPU tensors
     take the plain form.
     """
-    if x_seq.is_cuda:
-        return _launch(dynamics, cost, x_seq, u_seq, tile_s, block_t)
-    if x_seq.device.type == "cpu":
-        return linquad_batched_fused_plain(dynamics, cost, x_seq, u_seq, tile_s, block_t)
-    raise ValueError(f"{KERNEL}: unsupported device {x_seq.device}")
+    return contract.on_device(KERNEL, x_seq, _launch, linquad_batched_fused_plain,
+                              dynamics, cost, x_seq, u_seq, tile_s, block_t)

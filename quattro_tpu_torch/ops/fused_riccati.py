@@ -31,14 +31,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops import _build, contract
 
 KERNEL = "fused_riccati_single"
 BATCHED_KERNEL = "fused_riccati_batched"
-MAX_N = 16
-MAX_M = 8
 LANE = 128
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 _STORED_BF16 = 2  # the batched kernel's code for bfloat16 stage inputs
 
 RiccatiOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -132,21 +129,12 @@ def riccati_backward_fused_single_plain(
 def _launch(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg) -> RiccatiOutputs:
     horizon, n, _ = a_seq.shape
     m = b_seq.shape[-1]
-    if n > MAX_N or m > MAX_M:
-        raise ValueError(f"{KERNEL} takes n <= {MAX_N} and m <= {MAX_M}; got n={n}, m={m}")
+    if n > contract.MAX_N or m > contract.MAX_M:
+        raise ValueError(f"{KERNEL} takes n <= {contract.MAX_N} and m <= {contract.MAX_M}; got n={n}, m={m}")
     dtype = a_seq.dtype
-    if dtype not in _DTYPES:
-        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
-    inputs = [a_seq, b_seq, *cost_exp, v_x_final, v_xx_final]
-    shapes = [(horizon, n, n), (horizon, n, m), (horizon, n), (horizon, m), (horizon, n, n),
-              (horizon, m, m), (horizon, m, n), (n,), (n, n)]
-    for t, shape in zip(inputs, shapes):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != a_seq.device:
-            raise ValueError(
-                f"{KERNEL}: expected {shape} {dtype} on {a_seq.device}, "
-                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    inputs = [t.contiguous() for t in inputs]
+    inputs = contract.checked(KERNEL, [a_seq, b_seq, *cost_exp, v_x_final, v_xx_final],
+                     [(horizon, n, n), (horizon, n, m), (horizon, n), (horizon, m), (horizon, n, n),
+                      (horizon, m, m), (horizon, m, n), (n,), (n, n)], dtype, a_seq.device)
     k_seq = a_seq.new_empty((horizon, m))
     big_k_seq = a_seq.new_empty((horizon, m, n))
     v_x_seq = a_seq.new_empty((horizon + 1, n))
@@ -155,7 +143,7 @@ def _launch(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg) -> RiccatiOutput
 
     fn = _build.bind(KERNEL, "qt_fused_riccati_single", ctypes.c_int,
                      [ctypes.c_int] * 4 + [ctypes.c_double] + [ctypes.c_void_p] * 14)
-    _build.launch(KERNEL, fn, a_seq.device, _DTYPES[dtype], horizon, n, m, float(reg),
+    _build.launch(KERNEL, fn, a_seq.device, contract.DTYPES[dtype], horizon, n, m, float(reg),
                   *[t.data_ptr() for t in inputs], *[t.data_ptr() for t in outputs])
     return k_seq, big_k_seq, v_x_seq, v_xx_seq
 
@@ -172,11 +160,8 @@ def riccati_backward_fused_single(
 
     CUDA tensors launch K1 once; CPU tensors take the plain form.
     """
-    if a_seq.is_cuda:
-        return _launch(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg)
-    if a_seq.device.type == "cpu":
-        return riccati_backward_fused_single_plain(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg)
-    raise ValueError(f"{KERNEL}: unsupported device {a_seq.device}")
+    return contract.on_device(KERNEL, a_seq, _launch, riccati_backward_fused_single_plain,
+                     a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg)
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +274,8 @@ def _launch_batched(stages, v_x_final, v_xx_final, reg, stream_dtype, horizon, p
     batch, n = v_x_final.shape
     m = stages[6].shape[1 if packed else -1]  # l_u: (nb * h_pad, m, tile_s, 128) or (B, H, m)
     dtype, device = v_x_final.dtype, v_x_final.device
-    if n > MAX_N or m > MAX_M:
-        raise ValueError(f"{BATCHED_KERNEL} takes n <= {MAX_N} and m <= {MAX_M}; got n={n}, m={m}")
-    if dtype not in _DTYPES:
-        raise TypeError(f"{BATCHED_KERNEL} takes float32 or float64, got {dtype}")
+    if n > contract.MAX_N or m > contract.MAX_M:
+        raise ValueError(f"{BATCHED_KERNEL} takes n <= {contract.MAX_N} and m <= {contract.MAX_M}; got n={n}, m={m}")
     stored = _stream_code(stream_dtype, dtype)
     tails = stage_shapes(n, m)
     if packed is None:
@@ -302,36 +285,32 @@ def _launch_batched(stages, v_x_final, v_xx_final, reg, stream_dtype, horizon, p
         tile_s, h_pad = packed
         chunk = tile_s * LANE
         shapes = [(batch // chunk * h_pad, math.prod(tail), tile_s, LANE) for tail in tails]
-    names = STAGE_NAMES + ("v_x_final", "v_xx_final")
-    shapes += [(batch, n), (batch, n, n)]
-    for name, t, shape in zip(names, [*stages, v_x_final, v_xx_final], shapes):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
-            raise ValueError(
-                f"{BATCHED_KERNEL}: {name} expected {shape} {dtype} on {device}, "
-                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    stages = [(t.to(stream_dtype) if stored else t).contiguous() for t in stages]
-    terminal = [v_x_final.contiguous(), v_xx_final.contiguous()]
+    *stages, v_x_final, v_xx_final = contract.checked(BATCHED_KERNEL, [*stages, v_x_final, v_xx_final],
+                                             shapes + [(batch, n), (batch, n, n)], dtype, device,
+                                             STAGE_NAMES + ("v_x_final", "v_xx_final"))
+    if stored:
+        stages = [t.to(stream_dtype) for t in stages]
     k_seq = v_x_final.new_empty((batch, horizon, m))
     big_k_seq = v_x_final.new_empty((batch, horizon, m, n))
 
     fn = _build.bind(BATCHED_KERNEL, "qt_fused_riccati_batched", ctypes.c_int,
                      [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5)
     stage_ptrs = (ctypes.c_void_p * len(stages))(*[t.data_ptr() for t in stages])
-    _build.launch(BATCHED_KERNEL, fn, device, _DTYPES[dtype], stored, int(packed is not None), batch, horizon, n, m,
-                  chunk, h_pad, float(reg), stage_ptrs, *[t.data_ptr() for t in terminal], k_seq.data_ptr(),
-                  big_k_seq.data_ptr())
+    _build.launch(BATCHED_KERNEL, fn, device, contract.DTYPES[dtype], stored, int(packed is not None), batch, horizon,
+                  n, m, chunk, h_pad, float(reg), stage_ptrs, v_x_final.data_ptr(), v_xx_final.data_ptr(),
+                  k_seq.data_ptr(), big_k_seq.data_ptr())
     return k_seq, big_k_seq
 
 
-def _batched(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype):
-    if a_seq.is_cuda:
-        l_x, l_u, l_xx, l_uu, l_ux = cost_exp
-        return _launch_batched([a_seq, b_seq, l_xx, l_uu, l_ux, l_x, l_u], v_x_final, v_xx_final, reg,
-                               stream_dtype, a_seq.shape[1])
-    if a_seq.device.type == "cpu":
-        return riccati_backward_batched_fused_plain(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype)
-    raise ValueError(f"{BATCHED_KERNEL}: unsupported device {a_seq.device}")
+def _launch_natural(a_seq, b_seq, cost_exp, v_x_final, v_xx_final, reg, stream_dtype):
+    l_x, l_u, l_xx, l_uu, l_ux = cost_exp
+    return _launch_batched([a_seq, b_seq, l_xx, l_uu, l_ux, l_x, l_u], v_x_final, v_xx_final, reg, stream_dtype,
+                           a_seq.shape[1])
+
+
+def _batched(a_seq, *rest):
+    return contract.on_device(BATCHED_KERNEL, a_seq, _launch_natural, riccati_backward_batched_fused_plain,
+                              a_seq, *rest)
 
 
 def riccati_backward_batched_fused(
@@ -403,17 +382,17 @@ def riccati_backward_batched_fused2d(
         raise ValueError(f"packed h_pad {h_pad} must be divisible by block_t {block_t}")
     if h_pad < horizon:
         raise ValueError(f"packed h_pad {h_pad} is shorter than the horizon {horizon}")
-    if v_x_final.is_cuda:
-        return _launch_batched(list(packed_stage), v_x_final, v_xx_final, reg, stream_dtype, horizon,
-                               packed=(tile_s, h_pad))
-    if v_x_final.device.type != "cpu":
-        raise ValueError(f"{BATCHED_KERNEL}: unsupported device {v_x_final.device}")
-    m = packed_stage[6].shape[1]
-    a, b, l_xx, l_uu, l_ux, l_x, l_u = (
-        unpack_stage(x, batch, horizon, tail, tile_s) for x, tail in zip(packed_stage, stage_shapes(n, m))
-    )
-    return riccati_backward_batched_fused_plain(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x_final, v_xx_final, reg,
-                                                stream_dtype)
+
+    def plain():
+        m = packed_stage[6].shape[1]
+        a, b, l_xx, l_uu, l_ux, l_x, l_u = (
+            unpack_stage(x, batch, horizon, tail, tile_s) for x, tail in zip(packed_stage, stage_shapes(n, m))
+        )
+        return riccati_backward_batched_fused_plain(a, b, (l_x, l_u, l_xx, l_uu, l_ux), v_x_final, v_xx_final, reg,
+                                                    stream_dtype)
+
+    return contract.on_device(BATCHED_KERNEL, v_x_final, lambda: _launch_batched(
+        list(packed_stage), v_x_final, v_xx_final, reg, stream_dtype, horizon, packed=(tile_s, h_pad)), plain)
 
 
 def riccati_backward_batched_fused_auto(

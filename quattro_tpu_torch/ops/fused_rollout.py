@@ -33,15 +33,11 @@ from typing import Callable, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops import _build, contract
 
 KERNEL = "fused_rollout_single"
 BATCHED_KERNEL = "fused_rollout_batched"  # the source of K6 and K7, and K7's launch count
 BATCHED2D_KERNEL = "fused_rollout_batched2d"  # K6's launch count
-# Plants with device code in csrc/plants.cuh: name -> (kernel's plant id, n, m).
-DEVICE_PLANTS = {"quadrotor": (0, 12, 4), "cartpole": (1, 4, 1)}
-SUPPORTED_PLANTS = tuple(DEVICE_PLANTS)
-DTYPES = {torch.float32: 0, torch.float64: 1}
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -71,51 +67,20 @@ def fused_feedback_rollouts_plain(
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
 
-def device_plant(dynamics, kernel: str, n: int, m: int):
-    """``(plant id, parameter array, is_rk4, dt)`` of a discrete map for a kernel's C entry point.
-
-    Raises ``ValueError`` for a callable that is not one of the plants with
-    device code, or whose dimensions are not the plant's.
-    """
-    plant = getattr(dynamics, "plant", None)
-    if plant not in DEVICE_PLANTS:
-        raise ValueError(
-            f"{kernel} has device code for the plants {SUPPORTED_PLANTS}; got "
-            f"{plant!r}. Build the dynamics as make_discrete(QuadrotorField(params), dt, "
-            "method) or make_discrete(CartPoleField(params), dt, method), or use the "
-            "PyTorch forms (linesearch='xla', solver='while')."
-        )
-    plant_id, plant_n, plant_m = DEVICE_PLANTS[plant]
-    if (n, m) != (plant_n, plant_m):
-        raise ValueError(f"{kernel}: the {plant} has n={plant_n}, m={plant_m}; got n={n}, m={m}")
-    values = [float(v) for v in dynamics.params]
-    params = (ctypes.c_double * len(values))(*values)
-    return plant_id, params, int(dynamics.method == "rk4"), float(dynamics.dt)
-
-
 def _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
     horizon, m = u_ref_seq.shape
     n = x0.shape[0]
     n_alpha = alphas.shape[0]
-    plant_id, params, rk4, dt = device_plant(dynamics, KERNEL, n, m)
+    plant_id, params, rk4, dt = contract.device_plant(dynamics, KERNEL, n, m)
     dtype = x0.dtype
-    if dtype not in DTYPES:
-        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
-    inputs = [x0, x_ref_seq[:horizon], u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)]
-    shapes = [(n,), (horizon, n), (horizon, m), (horizon, m), (horizon, m, n), (n_alpha,)]
-    for t, shape in zip(inputs, shapes):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x0.device:
-            raise ValueError(
-                f"{KERNEL}: expected {shape} {dtype} on {x0.device}, "
-                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    inputs = [t.contiguous() for t in inputs]
+    inputs = contract.checked(KERNEL, [x0, x_ref_seq[:horizon], u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)],
+                     [(n,), (horizon, n), (horizon, m), (horizon, m), (horizon, m, n), (n_alpha,)], dtype, x0.device)
     cand_x = x0.new_empty((n_alpha, horizon + 1, n))
     cand_u = x0.new_empty((n_alpha, horizon, m))
 
     fn = _build.bind(KERNEL, "qt_fused_rollout", ctypes.c_int,
                      [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double] + [ctypes.c_void_p] * 9)
-    _build.launch(KERNEL, fn, x0.device, DTYPES[dtype], plant_id, horizon, n_alpha, rk4, params, dt,
+    _build.launch(KERNEL, fn, x0.device, contract.DTYPES[dtype], plant_id, horizon, n_alpha, rk4, params, dt,
                   *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr())
     return cand_x, cand_u
 
@@ -133,11 +98,8 @@ def fused_feedback_rollouts(
 
     CUDA tensors launch K2 once; CPU tensors take the plain form.
     """
-    if x0.is_cuda:
-        return _launch(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
-    if x0.device.type == "cpu":
-        return fused_feedback_rollouts_plain(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
-    raise ValueError(f"{KERNEL}: unsupported device {x0.device}")
+    return contract.on_device(KERNEL, x0, _launch, fused_feedback_rollouts_plain,
+                     dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
 
 
 def fused_feedback_rollouts_batched_plain(
@@ -160,36 +122,20 @@ def _launch_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq,
     batch, horizon, m = u_ref_seq.shape
     n = x0.shape[-1]
     n_alpha = alphas.shape[0]
-    plant_id, params, rk4, dt = device_plant(dynamics, count, n, m)
+    plant_id, params, rk4, dt = contract.device_plant(dynamics, count, n, m)
     dtype = x0.dtype
-    if dtype not in DTYPES:
-        raise TypeError(f"{count} takes float32 or float64, got {dtype}")
     ref_rows = x_ref_seq.shape[1] if x_ref_seq.dim() == 3 else -1
-    inputs = [x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)]
-    shapes = [(batch, n), (batch, max(ref_rows, horizon), n), (batch, horizon, m), (batch, horizon, m),
-              (batch, horizon, m, n), (n_alpha,)]
-    for t, shape in zip(inputs, shapes):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x0.device:
-            raise ValueError(
-                f"{count}: expected {shape} {dtype} on {x0.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    inputs = [t.contiguous() for t in inputs]
+    inputs = contract.checked(count, [x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas.to(dtype)],
+                     [(batch, n), (batch, max(ref_rows, horizon), n), (batch, horizon, m), (batch, horizon, m),
+                      (batch, horizon, m, n), (n_alpha,)], dtype, x0.device)
     cand_x = x0.new_empty((n_alpha, batch, horizon + 1, n))
     cand_u = x0.new_empty((n_alpha, batch, horizon, m))
 
     fn = _build.bind(BATCHED_KERNEL, "qt_fused_rollout_batched", ctypes.c_int,
                      [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_double), ctypes.c_double] + [ctypes.c_void_p] * 9)
-    _build.launch(count, fn, x0.device, DTYPES[dtype], plant_id, batch, horizon, n_alpha, ref_rows, rk4, params, dt,
-                  *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr())
+    _build.launch(count, fn, x0.device, contract.DTYPES[dtype], plant_id, batch, horizon, n_alpha, ref_rows, rk4,
+                  params, dt, *[t.data_ptr() for t in inputs], cand_x.data_ptr(), cand_u.data_ptr())
     return cand_x, cand_u
-
-
-def _rollouts_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas):
-    if x0.is_cuda:
-        return _launch_batched(count, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
-    if x0.device.type == "cpu":
-        return fused_feedback_rollouts_batched_plain(dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
-    raise ValueError(f"{count}: unsupported device {x0.device}")
 
 
 def fused_feedback_rollouts_batched(
@@ -208,7 +154,9 @@ def fused_feedback_rollouts_batched(
     and ``block_t`` size the TPU's VMEM tiles and change no result; they are
     not carried over.
     """
-    return _rollouts_batched(BATCHED_KERNEL, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    return contract.on_device(BATCHED_KERNEL, x0, partial(_launch_batched, BATCHED_KERNEL),
+                     fused_feedback_rollouts_batched_plain, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq,
+                     alphas)
 
 
 def fused_feedback_rollouts_batched2d(
@@ -227,4 +175,6 @@ def fused_feedback_rollouts_batched2d(
     tiles and change no result, and are not carried over. Here it launches
     the same kernel, one group of lanes per (alpha, trajectory) pair.
     """
-    return _rollouts_batched(BATCHED2D_KERNEL, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq, alphas)
+    return contract.on_device(BATCHED2D_KERNEL, x0, partial(_launch_batched, BATCHED2D_KERNEL),
+                     fused_feedback_rollouts_batched_plain, dynamics, x0, x_ref_seq, u_ref_seq, k_seq, big_k_seq,
+                     alphas)

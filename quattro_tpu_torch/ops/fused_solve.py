@@ -30,14 +30,13 @@ from typing import Callable, Sequence, Tuple
 import torch
 from torch.func import vmap
 
-from quattro_tpu_torch.ops import _build
-from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_fused_single_plain
-from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant, fused_feedback_rollouts_plain
+from quattro_tpu_torch.ops import _build, contract
+from quattro_tpu_torch.ops.fused_riccati import riccati_backward_fused_single_plain
+from quattro_tpu_torch.ops.fused_rollout import fused_feedback_rollouts_plain
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
 from quattro_tpu_torch.solver.rollout import simulate
 
 KERNEL = "fused_solve"
-SUPPORTED_COSTS = ("quadratic", "quadratic_final")
 MAX_ALPHAS = 64
 
 Dynamics = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -111,35 +110,6 @@ def fused_ilqr_solve_kernel_plain(
     return xs, us, k_out, big_k_out, stats
 
 
-def cost_tables(kernel: str, cost, final_cost, n: int, m: int, like: torch.Tensor):
-    """A kernel's view of the costs: the tables as tensors, then alpha, beta.
-
-    ``(q, r, x_ref)`` of the running cost and, unless ``final_cost`` is None,
-    ``(qf, xf_ref)`` of the final cost. Costs not built by
-    ``make_quadratic_cost`` / ``make_quadratic_final_cost`` (no device code)
-    and tables of another shape, dtype or device raise ``ValueError``.
-    """
-    kinds = (getattr(cost, "kind", None),) + (() if final_cost is None else (getattr(final_cost, "kind", None),))
-    if kinds != SUPPORTED_COSTS[: len(kinds)]:
-        raise ValueError(
-            f"{kernel} has device code for the costs of make_quadratic_cost and "
-            f"make_quadratic_final_cost (kinds {SUPPORTED_COSTS}); got kinds {kinds}. "
-            "Other callables need the PyTorch forms (solver='while', the solver's derivatives)."
-        )
-    tables = [cost.q_mat, cost.r_mat, cost.x_ref]
-    shapes = [(n, n), (m, m), (n,)]
-    if final_cost is not None:
-        tables += [final_cost.qf_mat, final_cost.x_ref]
-        shapes += [(n, n), (n,)]
-    for t, shape in zip(tables, shapes):
-        if tuple(t.shape) != shape or t.dtype != like.dtype or t.device != like.device:
-            raise ValueError(
-                f"{kernel}: cost table expected {shape} {like.dtype} on {like.device}, "
-                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    return [t.contiguous() for t in tables], float(cost.barrier_alpha), float(cost.barrier_beta)
-
-
 def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas):
     """K3's checked arguments: ``(fn, args, outputs, keep)``. ``fn(*args, stream)`` is one launch
     (``_build.launch`` adds the stream); ``keep`` holds the tensors that the pointers in ``args`` name.
@@ -150,29 +120,22 @@ def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter
     n = x_init_seq.shape[-1]
     n_alpha = len(alphas)
     dtype, device = x_init_seq.dtype, x_init_seq.device
-    plant_id, params, rk4, dt = device_plant(dynamics, KERNEL, n, m)
-    if dtype not in DTYPES:
-        raise TypeError(f"{KERNEL} takes float32 or float64, got {dtype}")
-    if n > MAX_N or m > MAX_M or not 1 <= n_alpha <= MAX_ALPHAS or max_iter < 0:
+    plant_id, params, rk4, dt = contract.device_plant(dynamics, KERNEL, n, m)
+    if n > contract.MAX_N or m > contract.MAX_M or not 1 <= n_alpha <= MAX_ALPHAS or max_iter < 0:
         raise ValueError(
-            f"{KERNEL} takes n <= {MAX_N}, m <= {MAX_M}, 1..{MAX_ALPHAS} alphas and max_iter >= 0; "
+            f"{KERNEL} takes n <= {contract.MAX_N}, m <= {contract.MAX_M}, 1..{MAX_ALPHAS} alphas and max_iter >= 0; "
             f"got n={n}, m={m}, {n_alpha} alphas, max_iter={max_iter}"
         )
-    tables, barrier_alpha, barrier_beta = cost_tables(KERNEL, cost, final_cost, n, m, x_init_seq)
-    q, r, x_ref, qf, xf_ref = tables
     alphas_t = torch.tensor([float(a) for a in alphas], dtype=dtype, device=device)
     # The entry point's ten inputs: x_init and cost_init with x0 (the last) null, or x0 with the two null.
     x_init, x0 = (None, x_init_seq) if cost_init is None else (x_init_seq, None)
     if cost_init is not None:
         cost_init = torch.as_tensor(cost_init, dtype=dtype, device=device).reshape(1)
-    inputs = [x_init, u_init, cost_init, q, r, x_ref, qf, xf_ref, alphas_t, x0]
-    shapes = [(horizon + 1, n), (horizon, m), (1,), (n, n), (m, m), (n,), (n, n), (n,), (n_alpha,), (n,)]
-    for t, shape in zip(inputs, shapes):
-        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != device):
-            raise ValueError(
-                f"{KERNEL}: expected {shape} {dtype} on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-    inputs = [None if t is None else t.contiguous() for t in inputs]
+    x_init, u_init, cost_init, alphas_t, x0 = contract.checked(
+        KERNEL, [x_init, u_init, cost_init, alphas_t, x0], [(horizon + 1, n), (horizon, m), (1,), (n_alpha,), (n,)],
+        dtype, device)
+    tables, barrier_alpha, barrier_beta = contract.cost_tables(KERNEL, cost, final_cost, n, m, x_init_seq)
+    inputs = [x_init, u_init, cost_init, *tables, alphas_t, x0]
     outputs = [
         x_init_seq.new_empty((horizon + 1, n)),
         x_init_seq.new_empty((horizon, m)),
@@ -192,7 +155,7 @@ def _prepare(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter
                      + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     in_ptrs = (ctypes.c_void_p * len(inputs))(*[None if t is None else t.data_ptr() for t in inputs])
     out_ptrs = (ctypes.c_void_p * len(outputs))(*[t.data_ptr() for t in outputs])
-    args = (DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt, float(reg), float(tol),
+    args = (contract.DTYPES[dtype], plant_id, horizon, n_alpha, int(max_iter), rk4, params, dt, float(reg), float(tol),
             barrier_alpha, barrier_beta, in_ptrs, out_ptrs, workspace.data_ptr(), workspace_elems)
     return fn, args, tuple(outputs), (inputs, workspace)
 
@@ -228,13 +191,8 @@ def fused_ilqr_solve_kernel(
     ``make_quadratic_cost`` / ``make_quadratic_final_cost``, with tables of
     the trajectory's dtype on its device; anything else raises ``ValueError``.
     """
-    if x_init_seq.is_cuda:
-        return _launch(dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas)
-    if x_init_seq.device.type == "cpu":
-        return fused_ilqr_solve_kernel_plain(
-            dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas
-        )
-    raise ValueError(f"{KERNEL}: unsupported device {x_init_seq.device}")
+    return contract.on_device(KERNEL, x_init_seq, _launch, fused_ilqr_solve_kernel_plain,
+                     dynamics, cost, final_cost, x_init_seq, u_init, cost_init, max_iter, tol, reg, alphas)
 
 
 def fused_ilqr_solve_from_x0_plain(
@@ -273,8 +231,6 @@ def fused_ilqr_solve_from_x0(
     is K2's at zero gains and step size 1, and sums its cost in time order with the final cost last,
     as it sums each line-search candidate's. Outputs and refusals as ``fused_ilqr_solve_kernel``'s.
     """
-    if x0.is_cuda:
-        return _launch(dynamics, cost, final_cost, x0, u_init, None, max_iter, tol, reg, alphas)
-    if x0.device.type == "cpu":
-        return fused_ilqr_solve_from_x0_plain(dynamics, cost, final_cost, x0, u_init, max_iter, tol, reg, alphas)
-    raise ValueError(f"{KERNEL}: unsupported device {x0.device}")
+    solve = (max_iter, tol, reg, alphas)
+    return contract.on_device(KERNEL, x0, lambda: _launch(dynamics, cost, final_cost, x0, u_init, None, *solve),
+                     lambda: fused_ilqr_solve_from_x0_plain(dynamics, cost, final_cost, x0, u_init, *solve))

@@ -23,11 +23,10 @@ from typing import Tuple
 
 import torch
 
-from quattro_tpu_torch.ops import _build
+from quattro_tpu_torch.ops import _build, contract
 
 KERNEL = "batched_cholesky"
 SMALL_DIM_MAX = 8  # batched_spd_solve's small_dim_max, and K8's largest m
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 _ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4  # qt_batched_cholesky
 
 
@@ -100,7 +99,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch, m, r = b.shape
     if not 1 <= m <= SMALL_DIM_MAX:
         raise ValueError(f"{KERNEL} takes 1 <= m <= {SMALL_DIM_MAX}, got m={m} (larger systems: torch.linalg.solve)")
-    dtype = _DTYPES.get(a.dtype)
+    dtype = contract.DTYPES.get(a.dtype)
     if dtype is None or b.dtype != a.dtype:
         raise ValueError(f"{KERNEL} takes float32 or float64 a and b of one dtype, got {a.dtype} and {b.dtype}")
     if b.device != a.device:
@@ -124,8 +123,4 @@ def batched_cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     the kernel stages tiles of systems in their natural layout through shared
     memory and bounds-checks the last tile.
     """
-    if a.is_cuda:
-        return _launch(a, b)
-    if a.device.type == "cpu":
-        return batched_cholesky_solve_plain(a, b)
-    raise ValueError(f"{KERNEL}: unsupported device {a.device}")
+    return contract.on_device(KERNEL, a, _launch, batched_cholesky_solve_plain, a, b)

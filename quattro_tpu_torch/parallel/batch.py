@@ -45,13 +45,12 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.func import vmap
 
+from quattro_tpu_torch.ops.contract import DTYPES, MAX_M, MAX_N, takes
 from quattro_tpu_torch.ops.fused_linquad import KERNEL as LINQUAD_KERNEL
 from quattro_tpu_torch.ops.fused_linquad import linquad_batched_fused
 from quattro_tpu_torch.ops.fused_riccati import (
-    LANE, MAX_M, MAX_N, default_tile_s, riccati_backward_batched_fused2d, riccati_backward_batched_fused_auto,
+    LANE, default_tile_s, riccati_backward_batched_fused2d, riccati_backward_batched_fused_auto,
 )
-from quattro_tpu_torch.ops.fused_rollout import DTYPES, device_plant
-from quattro_tpu_torch.ops.fused_solve import cost_tables
 from quattro_tpu_torch.parallel.mesh import GlobalArray, Mesh, assemble, shard
 from quattro_tpu_torch.solver.derivatives import linearize_dynamics, quadratize_cost, quadratize_final_cost
 from quattro_tpu_torch.solver.ilqr import (
@@ -179,24 +178,16 @@ def batched_ilqr_solve_with_logs(
 
 
 def _linquad_applies(dynamics, cost, x0_batch: torch.Tensor, u_init_batch: torch.Tensor) -> bool:
-    """Whether K5 computes a trip's running stages: what ``linquad_batched_fused`` takes, probed without raising.
+    """Whether K5 computes a trip's running stages: what ``linquad_batched_fused`` takes.
 
-    The dynamics have device code for their (n, m) (``device_plant``), the
-    running cost is ``make_quadratic_cost``'s with tables on the batch's
-    dtype and device (``cost_tables``), the data is float32 or float64 in one
-    dtype, and the batch is a multiple of ``default_tile_s(B) * 128``. Any
-    other callable, cost or batch reads False.
+    The data is float32 or float64 in one dtype on one device, the batch a
+    multiple of ``default_tile_s(B) * 128``, and ``ops/contract.py::takes``
+    holds for the dynamics and the running cost. Anything else reads False.
     """
     batch, n, m = x0_batch.shape[0], x0_batch.shape[-1], u_init_batch.shape[-1]
-    if (x0_batch.dtype not in DTYPES or u_init_batch.dtype != x0_batch.dtype
-            or u_init_batch.device != x0_batch.device or batch % (default_tile_s(batch) * LANE)):
-        return False
-    try:
-        device_plant(dynamics, LINQUAD_KERNEL, n, m)
-        cost_tables(LINQUAD_KERNEL, cost, None, n, m, x0_batch)
-    except (AttributeError, TypeError, ValueError):
-        return False
-    return True
+    return (x0_batch.dtype in DTYPES and u_init_batch.dtype == x0_batch.dtype
+            and u_init_batch.device == x0_batch.device and not batch % (default_tile_s(batch) * LANE)
+            and takes(LINQUAD_KERNEL, dynamics, cost, None, n, m, x0_batch))
 
 
 def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor, riccati_backend: str,
@@ -230,7 +221,7 @@ def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: to
             raise ValueError(
                 f"riccati_backend={riccati_backend!r} supports n <= {MAX_N}, m <= {MAX_M} (got n={n}, m={m})"
             )
-        if x0_batch.is_cuda and x0_batch.dtype not in (torch.float32, torch.float64):
+        if x0_batch.is_cuda and x0_batch.dtype not in DTYPES:
             raise ValueError(
                 f"riccati_backend={riccati_backend!r} on CUDA requires float32 or float64 data "
                 f"(got {x0_batch.dtype})"
@@ -244,11 +235,7 @@ def _select_backend(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: to
 
         if linquad and _linquad_applies(dynamics, cost, x0_batch, u_init_batch):
             return config, _linquad_gains(dynamics, cost, final_cost, config.reg, stream_dtype, u_init_batch.shape[1])
-
-        def fused(a, b, exp, v_x, v_xx, reg):
-            return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg, stream_dtype=stream_dtype)
-
-        return config, _natural_gains(dynamics, cost, final_cost, fused)
+        return config, _natural_gains(dynamics, cost, final_cost, _fused_backward(config.reg, stream_dtype))
     if config.parallel_riccati is None and config.riccati == "auto":
         config = config._replace(batch_hint=max(config.batch_hint, x0_batch.shape[0]))
     return config, _natural_gains(dynamics, cost, final_cost, _lane_backward(config, x0_batch, u_init_batch))
@@ -291,6 +278,12 @@ def _linquad_gains(dynamics, cost, final_cost, reg: float, stream_dtype, horizon
     return gains
 
 
+def _fused_backward(reg: float, stream_dtype=None):
+    """K4 on the natural layout as ``(a, b, exp, v_x, v_xx, trip_reg) -> (k, K)``, always at the static ``reg``."""
+    return lambda a, b, exp, v_x, v_xx, _: riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, reg,
+                                                                                stream_dtype=stream_dtype)
+
+
 def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: torch.Tensor):
     """The ``"vmap"`` backend's backward pass over the batch: ``(a, b, exp, v_x, v_xx, reg) -> (k, K)``.
 
@@ -313,11 +306,7 @@ def _lane_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
                 "riccati='fused' runs every trip with the one reg it is given; the adaptive "
                 "LM mu-schedule needs riccati='seq'|'auto'"
             )
-
-        def fused(a, b, exp, v_x, v_xx, reg):
-            return riccati_backward_batched_fused_auto(a, b, exp, v_x, v_xx, config.reg)
-
-        return fused
+        return _fused_backward(config.reg)
     if form == "assoc":
 
         def assoc(a, b, exp, v_x, v_xx, reg):
@@ -356,8 +345,8 @@ def _masked_solve(dynamics, cost, final_cost, x0_batch, u_init_batch, config: IL
     done = torch.zeros(batch, dtype=torch.bool, device=xs.device)
     iters = torch.zeros(batch, dtype=torch.int32, device=xs.device)
     t = 0
-    # Each trip ends on the loop's one host read, the lanes still active (the first before the first trip).
-    lanes = batch - int(done.sum()) if config.max_iter > 0 else 0
+    # Each trip ends on the loop's one host read, the lanes still active; before the first trip all are.
+    lanes = batch if config.max_iter > 0 else 0
     while lanes:
         with span("batch.trip"):
             count("batch.lanes_active", lanes)
@@ -527,7 +516,7 @@ def _tail_backward(config: ILQRConfig, x0_batch: torch.Tensor, u_init_batch: tor
     the sequential pass runs under ``torch.func.vmap``.
     """
     n, m = x0_batch.shape[-1], u_init_batch.shape[-1]
-    if n <= MAX_N and m <= MAX_M and (not x0_batch.is_cuda or x0_batch.dtype in (torch.float32, torch.float64)):
+    if n <= MAX_N and m <= MAX_M and (not x0_batch.is_cuda or x0_batch.dtype in DTYPES):
         return partial(riccati_backward_batched_fused_auto, reg=config.reg)
     per_lane = vmap(partial(riccati_backward, reg=config.reg, use_chol=config.chol_solve))
 

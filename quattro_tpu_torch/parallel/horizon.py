@@ -30,7 +30,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N
+from quattro_tpu_torch.ops.contract import MAX_M, MAX_N
 from quattro_tpu_torch.parallel.collectives import AxisComm
 from quattro_tpu_torch.parallel.mesh import Coord, GlobalArray, Mesh, assemble, shard
 from quattro_tpu_torch.solver.derivatives import CostExpansion

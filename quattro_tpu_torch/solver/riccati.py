@@ -26,7 +26,8 @@ from typing import Callable, NamedTuple, Tuple, Union
 
 import torch
 
-from quattro_tpu_torch.ops.fused_riccati import MAX_M, MAX_N, riccati_backward_fused_single
+from quattro_tpu_torch.ops.contract import MAX_M, MAX_N
+from quattro_tpu_torch.ops.fused_riccati import riccati_backward_fused_single
 from quattro_tpu_torch.ops.smallchol import SMALL_DIM_MAX, batched_cholesky_solve_fused, batched_spd_solve
 from quattro_tpu_torch.ops.smalllu import lu_solve, unrolled_lu
 from quattro_tpu_torch.solver.derivatives import CostExpansion

@@ -13,7 +13,7 @@ from quattro_tpu import systems as jsystems
 from quattro_tpu.ops.fused_rollout import fused_feedback_rollouts as j_fused_rollouts
 from quattro_tpu_torch import solver as tsolver
 from quattro_tpu_torch import systems as tsystems
-from quattro_tpu_torch.ops import _build, fused_rollout
+from quattro_tpu_torch.ops import _build, contract, fused_rollout
 
 H = 8
 RTOL = 1e-10
@@ -67,13 +67,13 @@ def test_plain_k2_cartpole_matches_jax_fused_kernel(method):
 def test_device_plant_descriptor_for_both_plants():
     """What the kernels' C entry points get: plant id, parameters in order, integrator, dt."""
     quad = tsystems.make_discrete(tsystems.QuadrotorField(tsystems.QuadrotorParams(mass=1.3)), 0.02, "euler")
-    pid, params, rk4, dt = fused_rollout.device_plant(quad, "test", 12, 4)
+    pid, params, rk4, dt = contract.device_plant(quad, "test", 12, 4)
     assert (pid, rk4, dt) == (0, 0, 0.02) and list(params) == [1.3, 0.02, 0.02, 0.04, 0.1, 9.81, 0.01]
     cart = tsystems.make_discrete(tsystems.CartPoleField(), 0.01, "rk4")
-    pid, params, rk4, dt = fused_rollout.device_plant(cart, "test", 4, 1)
+    pid, params, rk4, dt = contract.device_plant(cart, "test", 4, 1)
     assert (pid, rk4, dt) == (1, 1, 0.01) and list(params) == [1.0, 0.1, 0.15, 9.81]
     with pytest.raises(ValueError, match="n=4, m=1"):
-        fused_rollout.device_plant(cart, "test", 12, 4)
+        contract.device_plant(cart, "test", 12, 4)
 
 
 def _problem():
