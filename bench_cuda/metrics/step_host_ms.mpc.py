@@ -1,8 +1,9 @@
 """Host time of the program's MPC step (ms/step), ``control/mpc.py``: ``mpc.step`` less its ``mpc.stats_read``.
 
-What the step's Python costs the host, with the wait for K3 taken out: the
-K2 initial rollout's and the cost's launches, K3's preparation and launch,
-the warm-start shift. A program span, on the host's clock, over the traced
+What the step's Python costs the host, with the wait for K3 taken out: K3's
+preparation and launch (on the card K3 also rolls out and costs the warm
+start; on CPU tensors the host does, under ``mpc.initial_rollout``), the
+warm-start shift. A program span, on the host's clock, over the traced
 window.
 """
 
