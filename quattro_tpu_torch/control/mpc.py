@@ -93,11 +93,12 @@ def build_mpc(
     - ``"while"`` (default): ``ilqr_solve`` -- a loop with early exit; per-step
       latency varies with how many iterations the warm start needs.
     - ``"megakernel"``: ``ilqr_solve_fused`` -- the whole solve (linearize,
-      Riccati, line search, bookkeeping) as ONE kernel launch with FIXED
-      ``config.max_iter`` masked trips: deterministic, jitter-free step
-      latency for hard real-time loops. Set ``config.max_iter`` to the
-      iteration budget (a warm-started receding-horizon step typically
-      converges in <= 6). Pure solves only (a ``predict_fn`` needs the
+      Riccati, line search, bookkeeping) as ONE kernel launch, which leaves
+      its trip loop once the solve is done. ``config.max_iter`` is the
+      iteration budget and bounds the step latency for hard real-time loops
+      (a warm-started receding-horizon step typically converges in <= 6);
+      below that bound the latency follows the iterations the step needs and
+      is not constant. Pure solves only (a ``predict_fn`` needs the
       hybrid path); ``adaptive_reg`` is rejected by the kernel. On CUDA the
       dynamics and costs must be ones the kernel carries (see
       ``ops/fused_solve.py``).

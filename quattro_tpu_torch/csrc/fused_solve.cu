@@ -1,17 +1,21 @@
 // A whole iLQR solve in one launch (kernel K3).
 //
 // Replaces the TPU kernel quattro_tpu/ops/fused_solve.py::
-// fused_ilqr_solve_kernel. max_iter fixed trips, each
+// fused_ilqr_solve_kernel. Up to max_iter trips, each
 //   1. linearize + quadratize along the current trajectory,
 //   2. backward Riccati (riccati_step.cuh, shared with K1 and K4),
 //   3. closed-loop rollouts for every step size alpha, then their running
 //      costs, summed per alpha in time order with the final cost added last,
 //   4. first-accept select (the first alpha with total <= current cost) and
-//      the convergence bookkeeping,
-// under a `done` mask: trips after convergence recompute on the frozen
-// trajectory and are discarded, so the launch always does the same work and
-// the step latency does not depend on the data. Gains returned are those of
-// the last active trip. stats = [cost, iterations, converged].
+//      the convergence bookkeeping, which sets `done`.
+// The loop leaves after the trip that sets `done`, where the TPU kernel runs
+// every trip under a `done` mask and discards those after convergence: such a
+// trip writes nothing (no update, no gains, the cost carried, no iteration
+// counted), so the outputs are the masked loop's bit for bit and only the
+// time differs. A solve that does not converge still runs max_iter trips, so
+// max_iter bounds the latency; below that bound it follows the data. Gains
+// returned are those of the last trip. stats = [cost, iterations, converged],
+// and iterations are the trips run.
 //
 // The TPU kernel traces the user's dynamics and costs; here the plant
 // (plants.cuh: quadrotor or cart-pole, Euler or RK4, Jacobians by dual
@@ -423,6 +427,9 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(SolveArgs<T> g, P plant
       for (int i = tid; i < H * NM; i += nt) g.big_k[i] = g.big_kt[i];
     }
     __syncthreads();
+    // Every thread reads the same `done`: thread 0 writes it only in phase 4,
+    // past the next trip's first barrier, which no thread reaches after this.
+    if (done) break;
   }
 
   if (tid == 0) {

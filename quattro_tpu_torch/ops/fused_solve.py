@@ -1,16 +1,19 @@
 """The whole iLQR solve in one launch (kernel K3) and its plain form.
 
 Counterpart of ``quattro_tpu/ops/fused_solve.py::fused_ilqr_solve_kernel``:
-``max_iter`` fixed trips of linearize + quadratize, backward Riccati (the
+up to ``max_iter`` trips of linearize + quadratize, backward Riccati (the
 fused step law of ``ops/fused_riccati.py``), all-alpha rollouts with the
 running cost summed step by step and the final cost added last, first-accept
-select and the convergence bookkeeping, under a ``done`` mask. Trips after
-convergence recompute on the frozen trajectory and are discarded, so a solve
-always does the same work; the gains returned are those of the last active
-trip. ``fused_ilqr_solve_from_x0`` is the same solve given the start state:
-the launch rolls ``u_init`` out from ``x0`` and costs it before its first
-trip, where ``fused_ilqr_solve_kernel`` (the JAX function's counterpart)
-takes that rollout and its cost from the caller.
+select and the convergence bookkeeping, which sets ``done``. The loop leaves
+after the trip that sets ``done``. The JAX kernel runs every trip under a
+``done`` mask, and a trip after convergence changes nothing there, so the
+outputs are the same bit for bit and only the time differs: ``max_iter``
+bounds a solve's latency, and below it the trips follow the data. The gains
+returned are those of the last trip. ``fused_ilqr_solve_from_x0`` is the
+same solve given the start state: the launch rolls ``u_init`` out from
+``x0`` and costs it before its first trip, where ``fused_ilqr_solve_kernel``
+(the JAX function's counterpart) takes that rollout and its cost from the
+caller.
 
 The TPU kernel traces the user's dynamics and costs into its body. A CUDA
 kernel cannot, so ``csrc/fused_solve.cu`` carries the in-repo plants
@@ -66,7 +69,7 @@ def fused_ilqr_solve_kernel_plain(
     reg: float,
     alphas: Sequence[float],
 ) -> SolveOutputs:
-    """Plain PyTorch form of K3: the same masked fixed-trip loop, no host reads."""
+    """Plain PyTorch form of K3: the same trip loop, which leaves once ``done`` holds (one host read a trip)."""
     horizon, m = u_init.shape
     n = x_init_seq.shape[-1]
     dtype, device = x_init_seq.dtype, x_init_seq.device
@@ -105,6 +108,8 @@ def fused_ilqr_solve_kernel_plain(
         done = torch.where(active, ~found | small, done)
         iters = iters + active.to(dtype)
         cur = cost_next
+        if bool(done):
+            break
 
     stats = torch.stack([cur, iters, done.to(dtype)]).reshape(1, 3)
     return xs, us, k_out, big_k_out, stats
@@ -178,7 +183,7 @@ def fused_ilqr_solve_kernel(
     reg: float,
     alphas: Sequence[float],
 ) -> SolveOutputs:
-    """Run the full masked-iteration solve: K3 once on CUDA tensors, the plain form on CPU tensors.
+    """Run the whole solve, up to ``max_iter`` trips: K3 once on CUDA tensors, the plain form on CPU tensors.
 
     Returns ``(x_seq (H+1, n), u_seq (H, m), k_seq (H, m), big_k_seq (H, m, n),
     stats (1, 3) = [cost, iterations, converged])``. The JAX function's

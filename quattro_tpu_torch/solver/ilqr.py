@@ -7,8 +7,8 @@ when no step is accepted OR |J_prev - J_new| < tol (with ``adaptive_reg``,
 retry with a larger regularizer instead of stopping, up to ``reg_max``).
 
 ``ilqr_solve_fused`` runs the whole solve as one launch of kernel K3
-(``ops/fused_solve.py``) with fixed ``max_iter`` masked trips; on the card
-that launch also rolls out and costs the warm start.
+(``ops/fused_solve.py``) of at most ``max_iter`` trips, leaving at ``done``;
+on the card that launch also rolls out and costs the warm start.
 """
 
 from __future__ import annotations
@@ -254,9 +254,12 @@ def ilqr_solve_fused(
 
     Linearization and quadratization, the backward Riccati pass, the all-alpha
     line search and the convergence bookkeeping run as one launch of
-    ``ops/fused_solve.py`` with fixed ``config.max_iter`` masked trips: the
-    same convergence semantics as ``ilqr_solve`` and a step latency that does
-    not depend on the data. One host read (of ``stats``) per solve.
+    ``ops/fused_solve.py``, with the same convergence semantics as
+    ``ilqr_solve``. The launch leaves its trip loop once the solve is done,
+    so a solve pays for the iterations it needs; one that does not converge
+    runs ``config.max_iter`` trips, which bounds the latency (what is given up
+    is a constant latency below that bound). One host read (of ``stats``) per
+    solve.
 
     On CUDA tensors that one launch also rolls ``u_init`` out from ``x0`` and
     costs it (``fused_ilqr_solve_from_x0``), summing the cost in time order
@@ -289,9 +292,11 @@ def ilqr_solve_fused(
     count("mpc.k3_rollouts", int(x0.is_cuda))  # 1 where K3 rolled out the warm start, 0 on the host's path
     with span("mpc.stats_read"):
         _, iterations, converged = stats[0].tolist()  # the solve's one host read
-    count("mpc.iterations", int(iterations))
-    count("mpc.trips", config.max_iter)  # K3 runs every trip, masked after convergence
-    return ILQRSolution(x_seq, u_seq, stats[0, 0], int(iterations), converged > 0.5, k_seq, big_k_seq)
+    iterations = int(iterations)
+    count("mpc.iterations", iterations)
+    count("mpc.trips", iterations)  # K3 leaves its loop at `done` or after max_iter trips
+    count("mpc.trips_skipped", config.max_iter - iterations)
+    return ILQRSolution(x_seq, u_seq, stats[0, 0], iterations, converged > 0.5, k_seq, big_k_seq)
 
 
 def ilqr_solve_with_logs(

@@ -32,6 +32,7 @@ from quattro_tpu_torch.solver import (
 from quattro_tpu_torch.solver.derivatives import quadratize_final_cost
 from quattro_tpu_torch.solver.ilqr import _initial_rollout
 from quattro_tpu_torch.systems import CartPoleField, QuadrotorField, make_discrete, quadrotor_dynamics
+from quattro_tpu_torch.utils import timing
 
 RTOL = 1e-9
 ATOL = 1e-11
@@ -400,6 +401,60 @@ def test_k3_from_x0_matches_k2_cost_and_k3(cuda_device, plant, horizon, dtype):
     assert dict(_build.launches) == {fused_solve.KERNEL: 1}
     assert torch.equal(sol.x_seq, x) and torch.equal(sol.u_seq, u) and torch.equal(sol.big_k_seq, big_k)
     assert sol.iterations == int(stats[0, 1]) and float(sol.cost) == float(stats[0, 0])
+
+
+def k3_problem(device, plant, dtype, warm):
+    """``solve_problem`` at the cells' horizons in ``dtype``, with its tol: the quadrotor warm-started at hover
+    thrust (``warm``, converged in 3 iterations at tol 1e-2) or from zero thrust (far from hover: 6 trips do not
+    converge); the cart-pole from rest at tol 1e-1 (converged in 2)."""
+    dyn, cost, fcost, x0, u0 = solve_problem(device, plant, 50 if plant == "quadrotor" else 30)
+    cost = make_quadratic_cost(cost.q_mat.to(dtype), cost.r_mat.to(dtype), cost.x_ref.to(dtype),
+                               barrier_alpha=cost.barrier_alpha, barrier_beta=cost.barrier_beta)
+    fcost = make_quadratic_final_cost(fcost.qf_mat.to(dtype), fcost.x_ref.to(dtype))
+    x0, u0 = x0.to(dtype), u0.to(dtype)
+    if plant == "quadrotor" and warm:
+        u0 = torch.full_like(u0, 2.4525)
+    return (dyn, cost, fcost, x0, u0), 1e-2 if plant == "quadrotor" else 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["x_init", "x0"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("plant", ["quadrotor", "cartpole"])
+def test_k3_leaving_at_done_equals_a_launch_of_its_iterations(cuda_device, plant, dtype, entry):
+    """A launch of 6 trips whose solve converges in fewer leaves its loop there; its outputs equal, bit for bit,
+    those of a launch given exactly that many trips, which has none to skip."""
+    (dyn, cost, fcost, x0, u0), tol = k3_problem(cuda_device, plant, dtype, warm=True)
+    config = ILQRConfig(tol=tol)
+    if entry == "x0":
+        solve = lambda budget: fused_solve.fused_ilqr_solve_from_x0(dyn, cost, fcost, x0, u0, budget, tol, config.reg,
+                                                                    config.alphas)
+    else:
+        x_init = simulate(dyn, x0, u0)
+        cost_init = trajectory_cost(cost, fcost, x_init, u0)
+        solve = lambda budget: fused_solve.fused_ilqr_solve_kernel(dyn, cost, fcost, x_init, u0, cost_init, budget,
+                                                                   tol, config.reg, config.alphas)
+    out = solve(6)
+    iterations, converged = out[4][0, 1:].tolist()
+    assert 1 <= iterations < 6 and converged == 1.0
+    exact = solve(int(iterations))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, e) for o, e in zip(out, exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("plant,max_iter", [("quadrotor", 2), ("cartpole", 1)])
+def test_k3_solve_that_needs_every_trip_runs_them_all(cuda_device, plant, max_iter, dtype):
+    """From far from the optimum the solve needs its whole budget: ``max_iter`` iterations, none skipped."""
+    problem, tol = k3_problem(cuda_device, plant, dtype, warm=False)
+    timing.reset()
+    with timing.tracing(True):
+        sol = ilqr_solve_fused(*problem, ILQRConfig(tol=tol, max_iter=max_iter))
+    counters = timing.counters()
+    timing.reset()
+    assert sol.iterations == max_iter and not sol.converged
+    assert counters["mpc.trips"] == max_iter and counters["mpc.trips_skipped"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,22 @@ def test_plain_k3_matches_jax_megakernel(name, tol, max_iter):
 
 
 @pytest.mark.parametrize("name,tol,max_iter", CONFIGS)
+def test_plain_k3_leaves_at_done_as_a_solve_of_exactly_its_iterations(monkeypatch, name, tol, max_iter):
+    """The plain form runs the trips its solve needs, one linearization each, and its outputs equal, bit for bit,
+    those of a solve given exactly that many trips, which has none to skip."""
+    _, (dyn, cost, fcost, x0, u0) = problems(name)
+    trips, linearize = [], fused_solve.linearize_dynamics
+    monkeypatch.setattr(fused_solve, "linearize_dynamics", lambda *args: trips.append(1) or linearize(*args))
+    config = tsolver.ILQRConfig()
+    solve = lambda budget: fused_solve.fused_ilqr_solve_from_x0(dyn, cost, fcost, x0, u0, budget, tol, config.reg,
+                                                                config.alphas)
+    out = solve(max_iter)
+    iterations = int(out[4][0, 1])
+    assert len(trips) == iterations and (iterations < max_iter) == (tol > 0.0)
+    assert all(torch.equal(o, e) for o, e in zip(out, solve(iterations)))
+
+
+@pytest.mark.parametrize("name,tol,max_iter", CONFIGS)
 def test_plain_k3_matches_the_ports_while_solve(name, tol, max_iter):
     """Against ``ilqr_solve`` with the same fused step law (``riccati="fused"``); the
     line search there sums the stacked costs, here step by step: rtol 1e-8 still holds."""

@@ -195,8 +195,10 @@ def test_megakernel_mpc_step_spans_and_iterations(monkeypatch):
     assert [s[4] for s in reads] == step_ids and all(s[4] == -1 for s in steps_)
     iterations = [sol.iterations for sol in solved[steps:]]
     assert np.diff(counted[steps:]).tolist() == iterations and counted[1:steps + 1] == [0] * steps
-    # CPU tensors take the host's initial rollout: no solve counts a rollout inside K3.
-    assert timing.counters() == {"mpc.iterations": sum(iterations), "mpc.trips": 3 * steps, "mpc.k3_rollouts": 0}
+    # CPU tensors take the host's initial rollout: no solve counts a rollout inside K3. K3 leaves its loop at
+    # `done`, so the trips run are the iterations, and the rest of each solve's budget of 3 is skipped.
+    assert timing.counters() == {"mpc.iterations": sum(iterations), "mpc.trips": sum(iterations),
+                                 "mpc.trips_skipped": 3 * steps - sum(iterations), "mpc.k3_rollouts": 0}
     assert all(1 <= i <= 3 for i in iterations)
 
 
@@ -213,6 +215,9 @@ def test_megakernel_mpc_step_on_card_rolls_out_in_k3():
     for _ in range(steps):
         _, plan, state = ctrl.step(x, state)
         x = plan[1]
-    assert timing.counters()["mpc.k3_rollouts"] == steps
+    counters = timing.counters()
+    assert counters["mpc.k3_rollouts"] == steps
+    assert counters["mpc.trips"] == counters["mpc.iterations"] >= steps
+    assert counters["mpc.trips_skipped"] == 3 * steps - counters["mpc.iterations"]
     assert len(by_name("mpc.step")) == len(by_name("mpc.k3_launch")) == len(by_name("mpc.stats_read")) == steps
     assert by_name("mpc.initial_rollout") == []
